@@ -73,23 +73,27 @@ def make_keys(n_present: int, n_absent: int, seed: int):
 
 
 class Timer:
-    """CUDA-event time of ``fn`` in ms: mean over ``reps`` after a warm-up."""
+    """CUDA-event time of ``fn`` in ms, mean over ``reps`` after ``warmup``
+    calls, and ``fn``'s last result.  Only the newest result is kept alive,
+    so after two warm-up calls every output ``fn`` allocates comes from the
+    caching allocator, and no ``cudaMalloc`` lands inside the timed calls."""
 
     def __init__(self, torch):
         self.torch = torch
 
-    def __call__(self, fn, reps: int = 3, warmup: int = 1) -> float:
+    def __call__(self, fn, reps: int = 3, warmup: int = 2):
         torch = self.torch
+        last = None
         for _ in range(warmup):
-            fn()
+            last = fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fn()
+            last = fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / reps
+        return start.elapsed_time(end) / reps, last
 
 
 def phase_device(torch) -> str:
@@ -221,27 +225,41 @@ def phase_kernels(torch, np, seed: int) -> None:
     torch.cuda.synchronize()
 
 
-def probe_bytes(torch, keys, directory, table_keys, depth) -> int:
-    """Bytes a lookup must read beyond its key: the directory entry
-    (traditional), the probed key slots up to the stopping one, and the
-    value on a hit."""
+def lookup_bytes(keys, directory, table_keys, table_vals, depth) -> int:
+    """Bytes a lookup of ``keys`` must move: each key read and each value
+    written, the directory entry (traditional route), the probed key slots
+    up to the stopping one, and the stored value on a hit."""
     from repro_torch.core import hashing
-    bk = hashing.bits(table_keys)
-    S = bk.shape[1]
-    total = 0
-    for c in range(0, keys.numel(), 1 << 16):
-        kc = keys[c:c + (1 << 16)]
-        slot = hashing.dir_slot(hashing.hash_dir(kc), depth).long()
-        rows = slot if directory is None else directory[slot].long()
-        probed = bk[rows.unsqueeze(-1), hashing.probe_positions(kc, S)]
-        stop = (probed == kc.unsqueeze(-1)) | (probed == hashing.EMPTY_BITS)
-        hit = (probed == kc.unsqueeze(-1)) & (
-            torch.cumsum(probed == hashing.EMPTY_BITS, -1) == 0)
-        n_probed = torch.where(stop.any(-1), stop.int().argmax(-1) + 1, S)
-        total += 4 * int(n_probed.sum()) + 4 * int(hit.any(-1).sum())
-        if directory is not None:
-            total += 4 * kc.numel()
-    return total
+    from repro_torch.kernels import ref
+    vals, probed = ref.lookup_ref(keys, directory, table_keys, table_vals,
+                                  depth, count_probed=True)
+    hits = int((hashing.bits(vals) != hashing.MISS_BITS).sum())
+    dir_reads = 0 if directory is None else 4 * keys.numel()
+    return 8 * keys.numel() + dir_reads + 4 * int(probed.sum()) + 4 * hits
+
+
+def insert_bytes(before, after, keys, vals) -> int:
+    """Bytes the batch insert of ``keys`` (all new to ``before``) must move
+    to turn ``before`` into ``after``.  Per key: its key and value read, its
+    directory entry read, the key slots its probe reads, and the 8-byte slot
+    write.  A key's probe length is read from ``after``: with no deletes,
+    the slots before a key's own were full when it was placed there.  Per
+    changed bucket: its count read and written.  Per split: the old row
+    read, both rows written whole, and the two local depths.  Per changed
+    directory entry: its write, plus the old half read on a doubling."""
+    from repro_torch.kernels import ref
+    found, probed = ref.lookup_ref(keys, after.directory, after.bucket_keys,
+                                   after.bucket_vals, after.global_depth,
+                                   count_probed=True)
+    assert equal_bits(found, vals), "(e) inserted keys not found"
+    S = after.bucket_slots
+    splits = int(after.num_buckets) - int(before.num_buckets)
+    g0, g1 = int(before.global_depth), int(after.global_depth)
+    changed_counts = int((after.counts != before.counts).sum())
+    changed_dir = int((after.directory != before.directory).sum())
+    return (20 * keys.numel() + 4 * int(probed.sum()) + 8 * changed_counts
+            + splits * (3 * S * 8 + 12) + 4 * changed_dir
+            + (4 << g0 if g1 > g0 else 0))
 
 
 def phase_main(torch, np, args, timer):
@@ -283,15 +301,22 @@ def phase_main(torch, np, args, timer):
     assert int(st.dropped) == 0, "(d) inserts dropped"
     assert not sc.in_sync()
 
-    def lookup_all(route: str) -> float:
+    def lookup_all(route: str, reps: int = 3) -> float:
+        """ms per warm ``sc.lookup(probe)`` call on ``route`` (the mean of
+        ``reps``); the first call and the last must answer right."""
         before = (sc.routed_traditional, sc.routed_shortcut)
-        out = []
-        ms = timer(lambda: out.append(sc.lookup(probe)), reps=1, warmup=0)
-        got = out[-1].view(torch.int32)
-        assert torch.equal(got, want), f"(d) {route} lookups wrong"
+        first = sc.lookup(probe)
+        assert torch.equal(first.view(torch.int32), want), \
+            f"(d) {route} lookups wrong"
+        del first
+        ms, last = timer(lambda: sc.lookup(probe), reps=reps)
+        assert torch.equal(last.view(torch.int32), want), \
+            f"(d) {route} lookups wrong"
         moved = (sc.routed_traditional - before[0],
                  sc.routed_shortcut - before[1])
-        assert moved == ((1, 0) if route == "traditional" else (0, 1)), \
+        calls = 1 + 2 + reps
+        assert moved == ((calls, 0) if route == "traditional"
+                         else (0, calls)), \
             f"(d) expected the {route} route, counters moved {moved}"
         return ms
 
@@ -351,7 +376,6 @@ def measure_kernels(torch, np, res, timer) -> list:
     sc, probe = res["sc"], res["probe"]
     st = sc.state
     vk, vv, vlog2 = sc.view_snapshot()
-    nk = probe.numel()
     rows = []
 
     def err(a, b) -> int:
@@ -371,25 +395,19 @@ def measure_kernels(torch, np, res, timer) -> list:
     D = 1 << st.max_global_depth
     args = (probe, st.directory[:D], st.bucket_keys, st.bucket_vals,
             st.global_depth)
-    out = []
-    ms = timer(lambda: out.append(lk.eh_lookup(*args)))
-    plain = []
-    plain_ms = timer(lambda: plain.append(ref.eh_lookup_ref(*args)),
-                     reps=1, warmup=0)
+    ms, got = timer(lambda: lk.eh_lookup(*args))
+    plain_ms, want = timer(lambda: ref.eh_lookup_ref(*args), reps=1,
+                           warmup=0)
     entry("eh_lookup", "src/repro_torch/kernels/csrc/eh_lookup.cu",
           "src/repro/kernels/eh_lookup.py:171", ms, plain_ms,
-          8 * nk + probe_bytes(torch, probe, st.directory, st.bucket_keys,
-                               st.global_depth), err(out[-1], plain[-1]))
+          lookup_bytes(*args), err(got, want))
 
-    out.clear()
-    plain.clear()
-    ms = timer(lambda: out.append(lk.shortcut_lookup(probe, vk, vv, vlog2)))
-    plain_ms = timer(lambda: plain.append(
-        ref.shortcut_lookup_ref(probe, vk, vv, vlog2)), reps=1, warmup=0)
+    ms, got = timer(lambda: lk.shortcut_lookup(probe, vk, vv, vlog2))
+    plain_ms, want = timer(lambda: ref.shortcut_lookup_ref(
+        probe, vk, vv, vlog2), reps=1, warmup=0)
     entry("shortcut_lookup", "src/repro_torch/kernels/csrc/eh_lookup.cu",
           "src/repro/kernels/eh_lookup.py:171", ms, plain_ms,
-          8 * nk + probe_bytes(torch, probe, None, vk, vlog2),
-          err(out[-1], plain[-1]))
+          lookup_bytes(probe, None, vk, vv, vlog2), err(got, want))
 
     # an update replay of every slot, padded with duplicates of slot 0 as
     # the replay pads its chunk
@@ -400,15 +418,15 @@ def measure_kernels(torch, np, res, timer) -> list:
     offs = st.directory[slots.long()].contiguous()
     row_bytes = vk.shape[1] * 4
     base = hashing.clone(vk)
-    ms = timer(lambda: rc.ragged_copy(base, st.bucket_keys, slots, offs))
+    ms, _ = timer(lambda: rc.ragged_copy(base, st.bucket_keys, slots, offs))
     got = rc.ragged_copy(hashing.clone(vk), st.bucket_keys, slots, offs)
-    plain = []
-    plain_ms = timer(lambda: plain.append(ref.ragged_copy_ref(
-        hashing.clone(vk), st.bucket_keys, slots, offs)), reps=1, warmup=0)
+    plain_base = hashing.clone(vk)
+    plain_ms, want = timer(lambda: ref.ragged_copy_ref(
+        plain_base, st.bucket_keys, slots, offs), reps=1, warmup=0)
     winners = int(torch.unique(slots).numel())
     entry("ragged_copy", "src/repro_torch/kernels/csrc/ragged_copy.cu",
           "src/repro/kernels/ragged_copy.py:53", ms, plain_ms,
-          8 * slots.numel() + 2 * winners * row_bytes, err(got, plain[-1]))
+          8 * slots.numel() + 2 * winners * row_bytes, err(got, want))
 
     # the main path's last insert batch, on the state it was given
     st0 = res["last_batch_state"]
@@ -428,17 +446,12 @@ def measure_kernels(torch, np, res, timer) -> list:
     plain_ms = (time.perf_counter() - t0) * 1e3
     max_err = max(err(getattr(work, f).cpu(), getattr(host, f))
                   for f in eh.EHState._fields)
-    changed_rows = int(((hashing.bits(work.bucket_keys)
-                         != hashing.bits(st0.bucket_keys))
-                        | (hashing.bits(work.bucket_vals)
-                           != hashing.bits(st0.bucket_vals))).any(1).sum())
-    changed_small = sum(int((getattr(work, f) != getattr(st0, f)).sum())
-                        for f in ("directory", "counts", "local_depth"))
-    S = st0.bucket_slots
+    log(f"(e) eh_insert last batch: "
+        f"{int(work.num_buckets) - int(st0.num_buckets)} splits, global "
+        f"depth {int(st0.global_depth)} -> {int(work.global_depth)}")
     entry("eh_insert", "src/repro_torch/kernels/csrc/eh_insert.cu",
           "src/repro/core/extendible_hashing.py:221", ms, plain_ms,
-          8 * kb.numel() + 2 * changed_rows * S * 8 + 2 * changed_small * 4,
-          max_err)
+          insert_bytes(st0, work, kb, vb), max_err)
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
     assert not bad, f"(e) kernels differ from their plain versions: {bad}"
     return rows

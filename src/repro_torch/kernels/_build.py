@@ -31,13 +31,15 @@ NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
 _lock = threading.Lock()
 _libs: dict = {}
 _count_lock = threading.Lock()
-#: kernel name -> launches since the last :func:`reset_launches`
+#: kernel name -> ``__global__`` launches since the last :func:`reset_launches`
 LAUNCHES: collections.Counter = collections.Counter()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, kernels: int = 1) -> None:
+    """Count a wrapper call that launched ``kernels`` ``__global__``
+    kernels on the card."""
     with _count_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += kernels
 
 
 def reset_launches() -> None:

@@ -19,6 +19,9 @@ from repro_torch.kernels import _build, ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ragged_copy_launch": [_P, _P, _P, _P, _P, _I,
                                       ctypes.c_longlong, _I, _P]}
+#: ``__global__`` kernels one ``ragged_copy_launch`` starts: reset_winner,
+#: elect_winner, copy_rows
+KERNELS_PER_CALL = 3
 
 
 def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
@@ -60,5 +63,5 @@ def ragged_copy(view: torch.Tensor, pool: torch.Tensor, slots,
         _vec_bytes(row_bytes, view.data_ptr(), pool.data_ptr()),
         _build.stream(dev))
     _build.check(err, "ragged_copy")
-    _build.count_launch("ragged_copy")
+    _build.count_launch("ragged_copy", KERNELS_PER_CALL)
     return view

@@ -15,24 +15,37 @@ from repro_torch.core import hashing
 LOOKUP_CHUNK = 1 << 16
 
 
-def lookup_ref(keys, directory, bucket_keys, bucket_vals, global_depth):
+def lookup_ref(keys, directory, bucket_keys, bucket_vals, global_depth,
+               count_probed: bool = False):
     """Hash -> (directory ->) bucket row -> first-empty-terminated probe.
-    ``directory=None`` is the shortcut path (the slot is the row)."""
+    ``directory=None`` is the shortcut path (the slot is the row).
+
+    With ``count_probed`` it also returns, per key, the number of slots its
+    probe reads: up to and including the one it stops at (the key or the
+    first EMPTY, :func:`hashing.probe_slot`), all S when neither occurs."""
     dev = bucket_keys.device
     k = hashing.bits(keys, device=dev).reshape(-1)
     bk = hashing.bits(bucket_keys)
     bv = hashing.bits(bucket_vals)
     S = bk.shape[1]
     out = torch.empty_like(k)
+    probed = torch.empty(k.shape, dtype=torch.int64, device=dev) \
+        if count_probed else None
     for c in range(0, k.numel(), LOOKUP_CHUNK):
         kc = k[c:c + LOOKUP_CHUNK]
         slot = hashing.dir_slot(hashing.hash_dir(kc), global_depth).long()
         rows = slot if directory is None else directory[slot].long()
         pos = hashing.probe_positions(kc, S)
-        found, j = hashing.probe_hit(bk[rows.unsqueeze(-1), pos], kc)
+        row = bk[rows.unsqueeze(-1), pos]
+        found, j = hashing.probe_hit(row, kc)
         hit_pos = pos.gather(-1, j.long().unsqueeze(-1)).squeeze(-1)
         out[c:c + LOOKUP_CHUNK] = torch.where(
             found, bv[rows, hit_pos], hashing.MISS_BITS)
+        if count_probed:
+            stops, stop = hashing.probe_slot(row, kc)
+            probed[c:c + LOOKUP_CHUNK] = torch.where(stops, stop.long() + 1, S)
+    if count_probed:
+        return hashing.from_bits(out), probed
     return hashing.from_bits(out)
 
 

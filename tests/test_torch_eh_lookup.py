@@ -1,9 +1,11 @@
 """Port parity: ``repro_torch.kernels.eh_lookup`` (its plain version, on
 CPU tensors) against the Pallas kernels of ``repro.kernels.eh_lookup`` run
 in interpret mode, as ``tests/test_kernels.py`` runs them."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import extendible_hashing as jeh
 from repro.kernels import eh_lookup as jk
@@ -63,7 +65,6 @@ def test_sharded(rng, N):
         jnp.stack([j.bucket_keys for j, _, _ in built]),
         jnp.stack([j.bucket_vals for j, _, _ in built]),
         jnp.asarray(depths), tile=64))
-    import torch
     got = tk.sharded_eh_lookup(
         padded, torch.stack([t.directory for _, t, _ in built]),
         torch.stack([t.bucket_keys.view(torch.int32) for _, t, _ in built]),
@@ -82,6 +83,32 @@ def test_sharded(rng, N):
         torch.from_numpy(np.stack([np.asarray(v[1]) for v in jviews])
                          .view(np.int32)), depths, tile=64)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("slots", [8, 16])
+def test_probe_counts(rng, slots):
+    """``lookup_ref(count_probed=True)``: the values of the plain lookup, and
+    per key the slots read up to the key or the first EMPTY, walked here
+    with the JAX package's hashes."""
+    from repro.core import hashing as jh
+    from repro_torch.kernels import ref
+    jst, tst, probe = build(rng, 300, depth=8, slots=slots, capacity=512)
+    g = int(jst.global_depth)
+    vals, probed = ref.lookup_ref(probe, tst.directory, tst.bucket_keys,
+                                  tst.bucket_vals, g, count_probed=True)
+    np.testing.assert_array_equal(
+        vals.view(torch.int32).numpy(),
+        ref.lookup_ref(probe, tst.directory, tst.bucket_keys,
+                       tst.bucket_vals, g).view(torch.int32).numpy())
+    slot = np.asarray(jh.dir_slot(jh.hash_dir(jnp.asarray(probe)), g))
+    rows = np.asarray(jst.directory)[slot]
+    pos = np.asarray(jax.vmap(lambda k: jh.probe_positions(k, slots))(
+        jnp.asarray(probe)))
+    seen = np.asarray(jst.bucket_keys)[rows[:, None], pos]
+    stop = (seen == probe[:, None]) | (seen == np.uint32(0xFFFFFFFF))
+    want = np.where(stop.any(1), stop.argmax(1) + 1, slots)
+    np.testing.assert_array_equal(probed.numpy(), want)
+    assert probed.dtype == torch.int64
 
 
 def test_rejects_bad_operands(rng):

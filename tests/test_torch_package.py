@@ -96,7 +96,8 @@ def test_launch_counter():
     _build.reset_launches()
     _build.count_launch("x")
     _build.count_launch("x")
-    assert _build.launches() == {"x": 2}
+    _build.count_launch("y", 3)
+    assert _build.launches() == {"x": 2, "y": 3}
     _build.reset_launches()
     assert _build.launches() == {}
 
