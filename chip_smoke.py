@@ -10,20 +10,32 @@ Phases, each of which raises on failure (exit code 1):
   (b) build: every CUDA source of the port with ``nvcc`` (all at once);
   (c) each kernel against its plain PyTorch version, bit for bit, on the
       card: the lookup (traditional and shortcut, N=1 and N=4 shards, key
-      counts off the tile, absent keys), the ragged copy (duplicate slots;
-      uint32, float32 and bfloat16 rows) and the insert (a 20k-key trace
-      with 8-slot buckets: cascading splits and doublings);
-  (d) the main path at full width: ``ShortcutEH(max_global_depth=16,
+      counts off the tile, absent keys), the routed lookup (four flag
+      patterns, V != C), the stacked lookup (every shard of a 4-shard
+      stack), the ragged copy (duplicate slots; uint32, float32 and
+      bfloat16 rows) and the insert (a 20k-key trace with 8-slot buckets:
+      cascading splits and doublings);
+  (d) the flat path at full width: ``ShortcutEH(max_global_depth=16,
       bucket_slots=512, capacity=65536)`` takes 2**log2_keys unique keys
       in 16 batches, then lookups of every key and of 2**20 absent keys,
       out of sync (traditional route) and after ``pump()`` (shortcut
       route), then an async-mapper phase (25 ms poll) with lookups racing
       the replays; launch counts are read around this phase;
-  (e) times: insert, maintenance, ns/lookup per route (CUDA events), peak
-      device memory, and per kernel its time, its plain version's time and
-      its bound at the main path's shapes.
+  (e) times of the flat path: insert, maintenance, ns/lookup per route (CUDA
+      events), peak device memory, and per kernel its time, its plain
+      version's time and its bound at the path's shapes;
+  (f) the sharded path at the same widths: ``ShardedShortcutEH(16, 512,
+      65536, num_shards=4)`` takes the same keys; ``lookup_batched`` takes
+      its all-traditional arm before ``pump()``, its all-shortcut arm
+      after, and its mixed arm (one routed launch) after a batch to shards
+      0 and 1 only; per-shard ``lookup`` takes the stacked kernel; then an
+      async phase of 2**22 keys races lookups against the copy-on-write
+      publishes; launch counts are read around this phase, and then the
+      same times as (e) for it and its two kernels, and the cost of one
+      publish.
 
-The last three lines of standard output are the ``{"kernels": [...]}``
+The flat index is dropped before (f), so each path reports its own peak
+memory.  The last three lines of standard output are the ``{"kernels": [...]}``
 JSON, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without ``src/repro_torch`` beside it, it exits non-zero
 and prints no result.
@@ -31,6 +43,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -40,6 +53,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 MISS = 0xFFFFFFFF
+N_EXTRA = 1 << 14                # keys beyond the absent ones, for (f)
 
 
 def log(*a) -> None:
@@ -199,6 +213,33 @@ def phase_kernels(torch, np, seed: int) -> None:
         f"and N=4 ({K} keys/shard, tile 64), traditional and shortcut, "
         f"333 absent keys per shard all MISS")
 
+    # -- routed and stacked lookups over the same 4 shards ------------------
+    dirs = torch.stack([st.directory for st in states])
+    bks = torch.stack([hashing.bits(st.bucket_keys) for st in states])
+    bvs = torch.stack([hashing.bits(st.bucket_vals) for st in states])
+    vks = torch.stack([hashing.bits(v[0]) for v in views])
+    vvs = torch.stack([hashing.bits(v[1]) for v in views])
+    C = states[0].capacity
+    assert V != C, "(c) the routed check needs V != C"
+    for flags in ([1, 1, 1, 1], [0, 0, 0, 0], [1, 0, 0, 1], [0, 1, 1, 0]):
+        f = torch.tensor(flags, dtype=torch.int32, device=dev)
+        routed = lk.sharded_routed_lookup(pk, dirs, bks, bvs, depths, vks,
+                                          vvs, depths, f)
+        want = ref.routed_lookup_ref(pk, dirs, bks, bvs, depths, vks, vvs,
+                                     depths, f)
+        assert equal_bits(routed, want), f"(c) routed lookup {flags} differs"
+        assert equal_bits(routed, got), f"(c) routed {flags} != traditional"
+    for s, p in enumerate(probes):
+        pkey = torch.from_numpy(p.view(np.int32)).to(dev)
+        stacked = lk.stacked_shortcut_lookup(pkey, vks, vvs, depths, s)
+        want = ref.stacked_shortcut_lookup_ref(pkey, vks, vvs, depths, s)
+        assert equal_bits(stacked, want), f"(c) stacked lookup shard {s}"
+        n_miss = int((stacked.view(torch.int32) == -1).sum())
+        assert n_miss == 333, f"(c) stacked shard {s}: {n_miss} misses"
+    log(f"(c) routed lookup kernel == plain: flags 1111, 0000, 1001, 0110, "
+        f"N=4, {K} keys/shard (tile 256), V={V} != C={C}; stacked lookup "
+        f"kernel == plain for shards 0-3, 333 absent keys each all MISS")
+
     # -- ragged copy: duplicate slots, three dtypes -------------------------
     cases = [((1000, 512), (4000, 512), torch.uint32, 3000),
              ((100, 4, 6), (300, 4, 6), torch.float32, 250),
@@ -270,7 +311,8 @@ def phase_main(torch, np, args, timer):
     dev = torch.device("cuda")
     n = 1 << args.log2_keys
     n_absent = 1 << 20
-    keys_np, vals_np, absent_np = make_keys(n, n_absent, args.seed)
+    keys_np, vals_np, rest_np = make_keys(n, n_absent + N_EXTRA, args.seed)
+    absent_np = rest_np[:n_absent]
     keys = torch.from_numpy(keys_np.view(np.int32)).to(dev)
     vals = torch.from_numpy(vals_np.view(np.int32)).to(dev)
     probe = torch.cat([keys, torch.from_numpy(absent_np.view(np.int32)).to(dev)])
@@ -360,8 +402,30 @@ def phase_main(torch, np, args, timer):
     log(f"(d) kernel launches on the main path: {res['launches']}")
     for k in ("eh_insert", "eh_lookup", "shortcut_lookup", "ragged_copy"):
         assert res["launches"].get(k, 0) >= 1, f"(d) {k} never launched"
-    res.update(probe=probe, keys=keys, vals=vals, batch=batch)
+    res.update(probe=probe, keys=keys, vals=vals, batch=batch, want=want,
+               extra=torch.from_numpy(rest_np[n_absent:].view(np.int32)).to(
+                   dev))
     return res
+
+
+def err(a, b) -> int:
+    """Largest |a - b| of two uint32 tensors, as unsigned values."""
+    from repro_torch.core import hashing
+    return int((hashing.u32(a) - hashing.u32(b)).abs().max())
+
+
+def _row(name, source, replaces, launches, ms, plain_ms, bytes_,
+         max_err) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line; the bound is the bytes
+    the function must move over the card's memory rate."""
+    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+    log(f"(e) {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({bytes_} B), max |err| {max_err}, launches "
+        f"{launches.get(name, 0)}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
 def measure_kernels(torch, np, res, timer) -> list:
@@ -378,19 +442,9 @@ def measure_kernels(torch, np, res, timer) -> list:
     vk, vv, vlog2 = sc.view_snapshot()
     rows = []
 
-    def err(a, b) -> int:
-        return int((hashing.u32(a) - hashing.u32(b)).abs().max())
-
     def entry(name, source, replaces, ms, plain_ms, bytes_, max_err):
-        bound = bytes_ / HBM_BYTES_PER_S * 1e3
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": res["launches"].get(name, 0),
-                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": "bytes",
-                     "library_ms": None})
-        log(f"(e) {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({bytes_} B), max |err| {max_err}")
+        rows.append(_row(name, source, replaces, res["launches"], ms,
+                         plain_ms, bytes_, max_err))
 
     D = 1 << st.max_global_depth
     args = (probe, st.directory[:D], st.bucket_keys, st.bucket_vals,
@@ -452,9 +506,208 @@ def measure_kernels(torch, np, res, timer) -> list:
     entry("eh_insert", "src/repro_torch/kernels/csrc/eh_insert.cu",
           "src/repro/core/extendible_hashing.py:221", ms, plain_ms,
           insert_bytes(st0, work, kb, vb), max_err)
+    return rows
+
+
+def phase_sharded(torch, np, timer, data) -> dict:
+    """(f): the sharded path at the flat path's widths, 4 shards; returns
+    what its part of (e) reports."""
+    from repro_torch.core.sharded_eh import ShardedShortcutEH, shard_of_keys
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    keys, vals, probe, want = (data[k] for k in ("keys", "vals", "probe",
+                                                 "want"))
+    n, n_absent = keys.numel(), probe.numel() - keys.numel()
+    batch = n // 16
+    res = {"n_keys": n, "n_absent": n_absent}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+
+    idx = ShardedShortcutEH(max_global_depth=16, bucket_slots=512,
+                            capacity=65536, num_shards=4, device=dev)
+    t_insert = 0.0
+    for i in range(0, n, batch):
+        t0 = time.perf_counter()
+        idx.insert(keys[i:i + batch], vals[i:i + batch])
+        torch.cuda.synchronize()
+        t_insert += time.perf_counter() - t0
+    res["insert_s"] = t_insert
+    fan = [sh.avg_fan_in() for sh in idx.shards]
+    res["fan_in"] = fan
+    log(f"(f) inserted {n} keys into 4 shards in 16 batches: {t_insert:.3f} "
+        f"s; per shard: global_depth "
+        f"{[int(sh.state.global_depth) for sh in idx.shards]}, buckets "
+        f"{[int(sh.state.num_buckets) for sh in idx.shards]}, fan-in "
+        f"{[round(f, 4) for f in fan]}, dropped "
+        f"{[int(sh.state.dropped) for sh in idx.shards]}")
+    assert all(int(sh.state.dropped) == 0 for sh in idx.shards), \
+        "(f) inserts dropped"
+    assert not any(sh.in_sync() for sh in idx.shards)
+
+    def run(label, fn, probe_keys, expect, kernel, per_call, routes):
+        """ms per warm ``fn(probe_keys)`` (the mean of 3 after 2 warm-up
+        calls, after one checked call); every answer checked, and the
+        kernel launches and route counters moved as this arm must."""
+        l0 = _build.launches().get(kernel, 0)
+        r0 = (idx.routed_traditional, idx.routed_shortcut)
+        first = fn(probe_keys)
+        assert torch.equal(first.view(torch.int32), expect), \
+            f"(f) {label}: wrong answers"
+        del first
+        ms, last = timer(lambda: fn(probe_keys))
+        assert torch.equal(last.view(torch.int32), expect), \
+            f"(f) {label}: wrong answers"
+        calls = 1 + 2 + 3
+        moved = _build.launches().get(kernel, 0) - l0
+        assert moved == per_call * calls, \
+            f"(f) {label}: {kernel} launched {moved} times in {calls} calls"
+        got = (idx.routed_traditional - r0[0], idx.routed_shortcut - r0[1])
+        assert got == (routes[0] * calls, routes[1] * calls), \
+            f"(f) {label}: route counters moved {got}"
+        log(f"(f) {label}: every answer right; {kernel} x{moved}; "
+            f"{ms:.4f} ms per call")
+        return ms
+
+    # 1. out of sync: the all-traditional arm builds the eh_trad stack
+    res["trad_ms"] = run("lookup_batched, all-traditional arm",
+                         idx.lookup_batched, probe, want, "eh_lookup", 1,
+                         (4, 0))
+    assert "eh_trad" in idx.operands
+    # 2. pump: the all-shortcut arm, with no refresh on the lookup path
+    t0 = time.perf_counter()
+    idx.pump()
+    torch.cuda.synchronize()
+    res["maint_s"] = time.perf_counter() - t0
+    assert idx.in_sync() and all(f <= 8.0 for f in fan)
+    refreshes = idx.operands.stats.lookup_refreshes
+    res["sc_ms"] = run("lookup_batched, all-shortcut arm",
+                       idx.lookup_batched, probe, want, "shortcut_lookup", 1,
+                       (0, 4))
+    assert idx.operands.stats.lookup_refreshes == refreshes == 0, \
+        "(f) the all-shortcut arm refreshed the stack on the lookup path"
+    log(f"(f) maintenance (one pump) {res['maint_s']:.3f} s ({idx.stats}); "
+        f"lookup_refreshes {idx.operands.stats.lookup_refreshes}")
+    # 3. a batch to shards 0 and 1 only, not pumped: the mixed arm
+    extra = data["extra"]
+    extra = extra[shard_of_keys(extra, 2) < 2][:4096]
+    extra_vals = torch.arange(extra.numel(), dtype=torch.int32, device=dev)
+    idx.insert(extra, extra_vals)
+    assert [sh.in_sync() for sh in idx.shards] == [False, False, True, True]
+    mixed_probe = torch.cat([probe, extra])
+    mixed_want = torch.cat([want, extra_vals])
+    res["mixed_ms"] = run("lookup_batched, mixed arm", idx.lookup_batched,
+                          mixed_probe, mixed_want, "sharded_routed_lookup", 1,
+                          (2, 2))
+    padded = idx._partition(mixed_probe)[0]      # the kernels' key layout
+    res["routed_args"] = (padded, *idx.operands.handle("eh_trad"),
+                          *idx.operands.handle("eh_view"),
+                          torch.tensor([1, 1, 0, 0], dtype=torch.int32,
+                                       device=dev))
+    # 4. pump again; per-shard lookup: the stacked kernel on every shard
+    idx.pump()
+    assert idx.in_sync()
+    res["stacked_ms"] = run("lookup (per shard)", idx.lookup, mixed_probe,
+                            mixed_want, "stacked_shortcut_lookup", 4, (0, 4))
+    res["stacked_args"] = (padded[0], *idx.operands.handle("eh_view"), 0)
+    res["n_lookups"] = mixed_probe.numel()
+    res["mixed_probe"] = mixed_probe
+    inv = idx.check_invariants()
+    assert inv["ok"], inv["errors"][:5]
+    log("(f) invariants I1-I5 hold on every shard, and S1")
+    res["cache_stats"] = idx.operands.stats.snapshot()
+    res["resident"] = idx.operands.resident_bytes()
+    log(f"(f) {res['cache_stats']}; resident_bytes {res['resident']}")
+    res["idx"] = idx
+
+    # -- async mappers: lookups race the copy-on-write publishes -----------
+    n_async = min(n, 1 << 22)
+    a_batch = n_async // 16
+    t0 = time.perf_counter()
+    with ShardedShortcutEH(max_global_depth=16, bucket_slots=512,
+                           capacity=65536, num_shards=4, async_mapper=True,
+                           poll_interval=0.025, device=dev) as aidx:
+        for i in range(0, n_async, a_batch):
+            aidx.insert(keys[i:i + a_batch], vals[i:i + a_batch])
+            got = aidx.lookup_batched(keys[:i + a_batch]).view(torch.int32)
+            assert torch.equal(got, vals[:i + a_batch]), \
+                f"(f) async lookups wrong after {i + a_batch} keys"
+        assert aidx.wait_in_sync(timeout=120.0), "(f) async mappers stuck"
+        got = aidx.lookup_batched(probe[:n_async]).view(torch.int32)
+        assert torch.equal(got, vals[:n_async])
+        assert aidx.routed_shortcut >= 1 and aidx.routed_traditional >= 1
+        log(f"(f) async mappers: {n_async} keys in 16 batches, "
+            f"lookup_batched after each; routes shortcut "
+            f"{aidx.routed_shortcut} / traditional "
+            f"{aidx.routed_traditional}; {aidx.stats}; "
+            f"{aidx.operands.stats}; {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    res["launches"] = _build.launches()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"(f) kernel launches on the sharded path: {res['launches']}")
+    for k in ("eh_insert", "eh_lookup", "shortcut_lookup", "ragged_copy",
+              "sharded_routed_lookup", "stacked_shortcut_lookup"):
+        assert res["launches"].get(k, 0) >= 1, f"(f) {k} never launched"
+    return res
+
+
+def measure_sharded(torch, np, res, timer, rows) -> None:
+    """The sharded path's two kernels at its shapes (the mixed arm's routed
+    launch, shard 0's stacked launch), as ``measure_kernels`` does for the
+    flat path; and the time of one copy-on-write publish."""
+    from repro_torch.kernels import eh_lookup as lk
+    from repro_torch.kernels import ref
+    args = res["routed_args"]
+    ms, got = timer(lambda: lk.sharded_routed_lookup(*args))
+    plain_ms, want = timer(lambda: ref.routed_lookup_ref(*args), reps=1,
+                           warmup=0)
+    keys, dirs, bks, bvs, gds, vks, vvs, vls, flags = args
+    moved = sum(
+        lookup_bytes(keys[s], dirs[s], bks[s], bvs[s], gds[s]) if f else
+        lookup_bytes(keys[s], None, vks[s], vvs[s], vls[s])
+        for s, f in enumerate(flags.tolist()))
+    rows.append(_row("sharded_routed_lookup",
+                     "src/repro_torch/kernels/csrc/eh_lookup.cu",
+                     "src/repro/kernels/eh_lookup.py:334",
+                     res["launches"], ms, plain_ms, moved, err(got, want)))
+    args = res["stacked_args"]
+    ms, got = timer(lambda: lk.stacked_shortcut_lookup(*args))
+    plain_ms, want = timer(lambda: ref.stacked_shortcut_lookup_ref(*args),
+                           reps=1, warmup=0)
+    keys, vks, vvs, vls, s = args
+    rows.append(_row("stacked_shortcut_lookup",
+                     "src/repro_torch/kernels/csrc/eh_lookup.cu",
+                     "src/repro/kernels/eh_lookup.py:279",
+                     res["launches"], ms, plain_ms,
+                     lookup_bytes(keys, None, vks[s], vvs[s], vls[s]),
+                     err(got, want)))
+
+    # where an arm's time goes: its kernel alone, and the partition (one
+    # stable sort, one host read of the counts, the pad)
+    keys, dirs, bks, bvs, gds, vks, vvs, vls, _ = res["routed_args"]
+    trad_ms, _ = timer(lambda: lk.sharded_eh_lookup(keys, dirs, bks, bvs,
+                                                    gds))
+    sc_ms, _ = timer(lambda: lk.sharded_shortcut_lookup(keys, vks, vvs, vls))
+    part_ms, _ = timer(lambda: res["idx"]._partition(res["mixed_probe"]))
+    res["breakdown"] = (trad_ms, sc_ms, part_ms)
+    log(f"(e) on the mixed probe's layout {tuple(keys.shape)}: "
+        f"sharded_eh_lookup {trad_ms:.4f} ms, sharded_shortcut_lookup "
+        f"{sc_ms:.4f} ms, partition {part_ms:.4f} ms")
+
+    # one publish of shard 0's own view into the eh_view stack: the clone
+    # of each stacked part plus the slice write (same data, same epoch)
+    cache = res["idx"].operands
+    sl = cache.slice_of("eh_view", 0)
+    epoch = cache.epochs("eh_view")[0]
+    stack_bytes = res["resident"]["eh_view"]
+    ms, _ = timer(lambda: cache.publish("eh_view", 0, sl, epoch=epoch))
+    res["publish_ms"] = ms
+    log(f"(e) copy-on-write publish of one shard's view at N=4: {ms:.4f} ms "
+        f"(clones the {stack_bytes} B eh_view stack, bound "
+        f"{2 * stack_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms to read and "
+        f"write it once)")
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
     assert not bad, f"(e) kernels differ from their plain versions: {bad}"
-    return rows
 
 
 def main() -> int:
@@ -494,6 +747,29 @@ def main() -> int:
         f"{res['peak_bytes']} B; card {smi}")
     kernels = measure_kernels(torch, np, res, timer)
     res["sc"].close()
+    data = {k: res[k] for k in ("keys", "vals", "probe", "want", "extra")}
+    del res                      # drop the flat index: (f) has its own peak
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sres = phase_sharded(torch, np, timer, data)
+    n = sres["n_keys"] + sres["n_absent"]
+    log(f"(f) insert {sres['insert_s']:.6f} s for {sres['n_keys']} keys "
+        f"(4 shards); maintenance {sres['maint_s']:.6f} s; card {smi}")
+    log(f"(f) lookup_batched ns/lookup: all-traditional "
+        f"{sres['trad_ms'] * 1e6 / n:.4f}, all-shortcut "
+        f"{sres['sc_ms'] * 1e6 / n:.4f} ({n} lookups); mixed "
+        f"{sres['mixed_ms'] * 1e6 / sres['n_lookups']:.4f} "
+        f"({sres['n_lookups']} lookups)")
+    log(f"(f) per-shard lookup (stacked kernel) ns/lookup "
+        f"{sres['stacked_ms'] * 1e6 / sres['n_lookups']:.4f} "
+        f"({sres['n_lookups']} lookups)")
+    log(f"(f) per-shard fan-in {sres['fan_in']} (default threshold 8.0)")
+    log(f"(f) {sres['cache_stats']}")
+    log(f"(f) resident_bytes {sres['resident']}")
+    log(f"(f) max_memory_allocated {sres['peak_bytes']} B")
+    measure_sharded(torch, np, sres, timer, kernels)
+    sres["idx"].close()
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -62,6 +62,33 @@ def shortcut_lookup_ref(keys, view_keys, view_vals,
     return lookup_ref(keys, None, view_keys, view_vals, global_depth)
 
 
+def stacked_shortcut_lookup_ref(keys, view_keys, view_vals, view_log2s,
+                                shard: int) -> torch.Tensor:
+    """Shortcut lookup against block ``shard`` of the stacked views
+    ``(N, V, S)`` at that shard's view log2.  Returns (n,) uint32."""
+    log2 = torch.as_tensor(view_log2s)[shard]
+    return lookup_ref(keys, None, view_keys[shard], view_vals[shard], log2)
+
+
+def routed_lookup_ref(keys, directories, bucket_keys, bucket_vals,
+                      global_depths, view_keys, view_vals, view_log2s,
+                      two_level) -> torch.Tensor:
+    """Per-shard routed lookup over keys (N, K): shard s resolves through
+    its directory and buckets at ``global_depths[s]`` when ``two_level[s]``
+    is nonzero, else through its view at ``view_log2s[s]``.  (N, K) uint32."""
+    k = hashing.bits(keys, device=bucket_keys.device)
+    out = torch.empty_like(k)
+    for s, flag in enumerate(torch.as_tensor(two_level).tolist()):
+        if flag:
+            got = lookup_ref(k[s], directories[s], bucket_keys[s],
+                             bucket_vals[s], global_depths[s])
+        else:
+            got = lookup_ref(k[s], None, view_keys[s], view_vals[s],
+                             view_log2s[s])
+        out[s] = hashing.bits(got)
+    return hashing.from_bits(out)
+
+
 def ragged_copy_ref(view, pool, slots, offsets) -> torch.Tensor:
     """``view[slots[i]] = pool[offsets[i]]`` in place, the last of duplicate
     slots winning (the sequential grid of the TPU kernel); returns view."""

@@ -15,7 +15,9 @@ mapper thread that polls a FIFO of maintenance requests —
     waited for (a no-op for CPU tensors);
   * reads route through the shortcut only when it is **in sync** (version
     gate) *and* a structure-specific cost statistic says the shortcut pays
-    (fan-in for EH §3.2) — a pluggable :class:`RoutingPolicy`.
+    (fan-in for EH §3.2) — a pluggable :class:`RoutingPolicy`;
+  * publish epochs (``trad_epoch``, ``view_epoch``) key the stacked
+    operand cache of the sharded index (``runtime/operand_cache.py``).
 
 The module is pure Python apart from population; it is a copy of the JAX
 package's, so that the port runs without JAX.  Every replay runs on the
@@ -167,6 +169,16 @@ class ShortcutMapper:
         self._replay_mutex = threading.Lock()
         self._trad: dict = {}
         self._sc: dict = {}
+        # publish epochs for the stacked operand cache
+        # (runtime/operand_cache.py): trad_epoch moves with every
+        # authoritative mutation (record/invalidate), view_epoch with every
+        # replay-batch publication.  Writer order is always "publish
+        # operands, then bump": replay callables publish into the cache at
+        # :attr:`next_view_epoch` while the replay runs, and view_epoch
+        # catches up to it before sc_version is published, so any view a
+        # version gate certifies is already in the stack at a covering epoch.
+        self.trad_epoch = 0
+        self.view_epoch = 0
         self._queue: "queue.SimpleQueue[Request]" = queue.SimpleQueue()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -186,6 +198,10 @@ class ShortcutMapper:
             v = self._trad.get(k, 0) + 1
             self._trad[k] = v
             out.append(v)
+        # after the client stored its mutated state (callers reassign the
+        # state first, then record under the same lock): a cache reader
+        # that sees the new epoch is sure to snapshot the new state
+        self.trad_epoch += 1
         return out
 
     def invalidate(self, keys: Sequence[Hashable]) -> None:
@@ -195,6 +211,17 @@ class ShortcutMapper:
         for k in keys:
             self._trad[k] = self._trad.get(k, 0) + 1
             self._sc[k] = -1
+        self.trad_epoch += 1
+
+    @property
+    def next_view_epoch(self) -> int:
+        """The epoch the in-flight replay's publications carry.
+
+        Meaningful only on the replay path (mapper thread or ``pump()``
+        caller, under ``_replay_mutex``): replay callables publish into the
+        stacked cache at this epoch, and ``_process`` bumps ``view_epoch``
+        to exactly it before publishing ``sc_version``."""
+        return self.view_epoch + 1
 
     def trad_version(self, key: Hashable = GLOBAL_VIEW) -> int:
         return self._trad.get(key, 0)
@@ -319,9 +346,12 @@ class ShortcutMapper:
            authoritative structure, which already contains their effect;
         2. replay survivors in FIFO order, handing the client contiguous
            runs of same-kind requests (so e.g. EH merges one update batch
-           and the KV cache composes creates before later appends);
+           and the KV cache composes creates before later appends); replay
+           callables publish into the stacked cache at
+           :attr:`next_view_epoch`;
         3. eagerly populate the view arrays (§3.1);
-        4. publish ``sc_version`` monotonically.
+        4. bump ``view_epoch`` to the epoch the replays published at, then
+           publish ``sc_version`` monotonically.
         """
         with self.lock:
             snap = self._snapshot()
@@ -357,6 +387,11 @@ class ShortcutMapper:
         t2 = time.perf_counter()
         self.stats.replay_seconds += t1 - t0
         self.stats.populate_seconds += t2 - t1
+
+        # catch up to next_view_epoch BEFORE publishing sc versions: once a
+        # gate certifies these versions, the stacked cache already holds
+        # the published operands at a covering epoch
+        self.view_epoch += 1
 
         for r in batch:
             for k, v in r.versions.items():

@@ -9,7 +9,10 @@ import torch
 
 from repro.core import extendible_hashing as jeh
 from repro.kernels import eh_lookup as jk
-from repro_torch.convert import state_from_numpy, view_from_numpy
+from repro_torch.convert import (stack_shards, state_from_numpy,
+                                state_to_numpy, view_from_numpy,
+                                view_to_numpy)
+from repro_torch.core import extendible_hashing as teh
 from repro_torch.kernels import eh_lookup as tk
 from repro_torch.kernels import ops
 
@@ -119,3 +122,86 @@ def test_rejects_bad_operands(rng):
     with pytest.raises(ValueError):
         tk.eh_lookup(probe, tst.directory, tst.bucket_keys,
                      tst.bucket_vals, tst.global_depth, tile=0)
+
+
+def distinct_keys(rng, n, lo=1, hi=2**31):
+    """``n`` distinct uint32 keys in ``[lo, hi)``, drawn without building the
+    whole range."""
+    return (rng.choice(hi - lo, n, replace=False) + lo).astype(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def stacked():
+    """Four shards' states and composed views, stacked for both packages
+    (views padded to the common extent, as the cache pads them), and 64
+    present keys per shard.  The states are built by the port's insert,
+    which ``test_torch_extendible_hashing.py`` holds to the JAX one."""
+    rng = np.random.default_rng(7)
+    states, views, probes = [], [], []
+    for s in range(4):
+        k = distinct_keys(rng, 160)
+        v = np.arange(160, dtype=np.uint32) + np.uint32(s * 10_000)
+        st = teh.eh_insert_many(teh.eh_create(8, 8, 256, device="cpu"), k, v)
+        vs = max(1, 1 << int(st.global_depth))
+        vk, vv = teh.compose_shortcut(st, vs)
+        states.append(state_to_numpy(st))
+        views.append(view_to_numpy((vk, vv, vs.bit_length() - 1)))
+        probes.append(k[:64])
+    trad, view = stack_shards(states, views, device="cpu")
+
+    def to_jax(ops):
+        return tuple(jnp.asarray(t.view(torch.int32).numpy()).view(jnp.uint32)
+                     if t.dtype == torch.uint32 else jnp.asarray(t.numpy())
+                     for t in ops)
+    return np.stack(probes), trad, view, to_jax(trad), to_jax(view)
+
+
+@pytest.mark.parametrize("flags", [[1, 1, 1, 1], [0, 0, 0, 0], [1, 0, 0, 1],
+                                   [0, 1, 1, 0]])
+def test_routed(rng, stacked, flags):
+    """``sharded_routed_lookup`` against the JAX routed kernel, with V != C
+    and key counts off the tile; every shard's answers are its route's."""
+    keys, trad, view, jtrad, jview = stacked
+    keys = np.concatenate([keys, np.stack([distinct_keys(
+        rng, 13, lo=2**31, hi=2**32 - 2) for _ in range(4)])], axis=1)
+    assert view[0].shape[1] != trad[1].shape[1]
+    want = np.asarray(jk.sharded_routed_lookup(
+        jnp.asarray(keys), *jtrad, *jview, jnp.asarray(flags, jnp.int32),
+        tile=64))
+    got = tk.sharded_routed_lookup(keys, *trad, *view,
+                                   torch.tensor(flags, dtype=torch.int32),
+                                   tile=64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, 64:] == 0xFFFFFFFF).all() and \
+        (want[:, :64] != 0xFFFFFFFF).all()
+    np.testing.assert_array_equal(
+        want, np.asarray(jk.sharded_eh_lookup(jnp.asarray(keys), *jtrad,
+                                              tile=64)))
+
+
+def test_stacked(rng, stacked):
+    """``stacked_shortcut_lookup`` for every shard of the stack, present and
+    absent keys, against the JAX stacked kernel."""
+    keys, _, view, _, jview = stacked
+    for s in range(4):
+        probe = np.concatenate([keys[s], distinct_keys(rng, 40, lo=2**31,
+                                                     hi=2**32 - 2)])
+        want = np.asarray(jk.stacked_shortcut_lookup(
+            jnp.asarray(probe), *jview, s, tile=64))
+        got = tk.stacked_shortcut_lookup(probe, *view, s, tile=64)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (want[64:] == 0xFFFFFFFF).all()
+    with pytest.raises(ValueError, match="shard 4"):
+        tk.stacked_shortcut_lookup(keys[0], *view, 4)
+
+
+def test_routed_rejects_slot_width_mismatch(stacked):
+    keys, trad, view, jtrad, jview = stacked
+    flags = np.zeros(4, np.int32)
+    with pytest.raises(ValueError, match="slot widths"):
+        jk.sharded_routed_lookup(jnp.asarray(keys), *jtrad,
+                                 jview[0][:, :, :4], jview[1][:, :, :4],
+                                 jview[2], jnp.asarray(flags), tile=64)
+    with pytest.raises(ValueError, match="slot widths"):
+        tk.sharded_routed_lookup(keys, *trad, view[0][:, :, :4],
+                                 view[1][:, :, :4], view[2], flags, tile=64)

@@ -162,11 +162,38 @@ def async_thread_converges(m):
         t.mapper.close()
 
 
+def publish_epochs(m):
+    """trad_epoch moves with record/invalidate; a replay publishes at
+    next_view_epoch, and view_epoch reaches it before sc_version moves."""
+    t, seen = ToyClient(m), []
+    during = []
+    replay = t._replay_update
+
+    def spy(snap, requests):
+        during.append((t.mapper.next_view_epoch, t.mapper.view_epoch,
+                       t.mapper.sc_version(m.GLOBAL_VIEW)))
+        replay(snap, requests)
+
+    t.mapper._replay_update = spy
+    for i in range(3):
+        t.put(f"k{i}", i)
+        seen.append((t.mapper.trad_epoch, t.mapper.view_epoch))
+    t.mapper.pump()
+    with t.mapper.lock:
+        t.mapper.invalidate([m.GLOBAL_VIEW])
+    seen.append((t.mapper.trad_epoch, t.mapper.view_epoch,
+                 t.mapper.next_view_epoch))
+    t.put("k9", 9, kind="create")
+    t.mapper.pump()
+    seen.append((t.mapper.trad_epoch, t.mapper.view_epoch))
+    return seen, during
+
+
 SCENARIOS = [monotone_and_gated, publish_never_decreases, invalidate_desyncs,
              create_collapses_at_enqueue, batch_side_collapse,
              newer_update_survives_create, per_key_collapse_is_not_global,
              routing_policies, gate_requires_sync_and_policy,
-             async_thread_converges]
+             async_thread_converges, publish_epochs]
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)

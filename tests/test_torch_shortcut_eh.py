@@ -188,3 +188,35 @@ def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TEH(max_global_depth=4, bucket_slots=4, capacity=8)
+
+
+def test_merged_pump_serves_stale_view_like_the_reference():
+    """A reference-side fault the port keeps for parity (ROADMAP section 3):
+    an update replay against a snapshot newer than its request remaps only
+    the request's touched buckets, so keys that a later insert's split moved
+    into a bucket no later payload names are missing from the view.  After
+    one pump() of two inserts the gate reports in sync, yet the shortcut
+    returns MISS for present keys; both packages give the same answers, and
+    the traditional route finds the keys."""
+    rng = np.random.default_rng(0)
+    keys = (rng.choice(2**31 - 1, 4096, replace=False)[:640]
+            + 1).astype(np.uint32)
+    vals = np.arange(640, dtype=np.uint32)
+    kw = dict(max_global_depth=12, bucket_slots=8, capacity=2048,
+              fan_in_threshold=1e9)
+    j, t = JEH(**kw), TEH(**kw, device="cpu")
+    for i in range(0, 640, 64):
+        j.insert(keys[i:i + 64], vals[i:i + 64])
+        t.insert(keys[i:i + 64], vals[i:i + 64])
+        if i // 64 % 2 == 1:
+            assert t.pump() == j.pump()
+    assert t.in_sync() and t.use_shortcut()
+    assert_same(j, t)
+    got = t.lookup(keys).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j.lookup(keys)))
+    stale = got != vals
+    assert 0 < stale.sum() < 16 and (got[stale] == 0xFFFFFFFF).all()
+    np.testing.assert_array_equal(
+        teh.eh_lookup_many(t.state, keys[stale]).numpy(), vals[stale])
+    j.close()
+    t.close()
