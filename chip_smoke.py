@@ -8,13 +8,22 @@ Phases, each of which raises on failure (exit code 1):
   (a) device: the card's name, and its name and power limit as
       ``nvidia-smi --query-gpu=name,power.limit`` reports them;
   (b) build: every CUDA source of the port with ``nvcc`` (all at once);
-  (c) each kernel against its plain PyTorch version, bit for bit, on the
-      card: the lookup (traditional and shortcut, N=1 and N=4 shards, key
+  (c) each kernel against its plain PyTorch version on the card: bit for
+      bit, the lookup (traditional and shortcut, N=1 and N=4 shards, key
       counts off the tile, absent keys), the routed lookup (four flag
       patterns, V != C), the stacked lookup (every shard of a 4-shard
       stack), the ragged copy (duplicate slots; uint32, float32 and
       bfloat16 rows) and the insert (a 20k-key trace with 8-slot buckets:
-      cascading splits and doublings);
+      cascading splits and doublings); within 2e-5 (1 + |want|) in
+      float32 and 2^-7 |want| + 2^-8 max |want| in bfloat16 (one bfloat16
+      step of the element, half a step of the largest), the shortcut and
+      paged decode attention at qwen3_4b's and gemma2_27b's KV widths
+      (softcap 50, window 4096 over an 8192 context) and at G = 3, hd 64:
+      contexts off the tile, 0 and S_cap, a -1 table entry and an all -1
+      row, strided (as ``ops.decode_*`` pass them) and contiguous inputs;
+      at each shape the plain versions of wrong kernels (the last token
+      dropped, a 64-token chunk skipped, the window edge moved by one) are
+      shown to go past that limit;
   (d) the flat path at full width: ``ShortcutEH(max_global_depth=16,
       bucket_slots=512, capacity=65536)`` takes 2**log2_keys unique keys
       in 16 batches, then lookups of every key and of 2**20 absent keys,
@@ -32,13 +41,32 @@ Phases, each of which raises on failure (exit code 1):
       async phase of 2**22 keys races lookups against the copy-on-write
       publishes; launch counts are read around this phase, and then the
       same times as (e) for it and its two kernels, and the cost of one
-      publish.
+      publish;
+  (g) the KV serving layer at qwen3_4b's KV widths (36 layers, 32 query
+      heads over 8 KV heads, head_dim 128, bfloat16): a paged cache of 5120
+      16-token blocks and a ``ShortcutKVManager`` over 16 sequences of up to
+      4096 tokens.  Prefill in 4 groups (seeded lengths in 2048-4000),
+      permute the physical blocks (content unchanged, fragmentation near
+      1), check the composed view against ``gather_context``, then 64
+      decode steps: append, 36 layers through ``ops.decode_paged``
+      (out of sync), ``pump()``, 36 layers through ``ops.decode_shortcut``
+      on the installed view, the routes held to each other and to the plain
+      version; part-way a release (both kernels decode it to zeros, the
+      gate goes paged) and a re-prefill (the create replay brings it back);
+      ``get_context`` on both routes against per-sequence gathers; an async
+      phase (2 shards, 8 sequences of 1024 tokens) with decodes racing the
+      publishes; a ``PrefixCacheIndex`` over the 16 prompts.  Reports ms
+      per decode step per route, append and replay + publish ms per step,
+      create replay ms per sequence, peak memory, the kernels' |err| over
+      the bfloat16 limit beside the wrong kernels' at the path's shapes, and
+      both kernels' rows (with the time of ``scaled_dot_product_attention``
+      on the same view as the shortcut kernel's yardstick).
 
-The flat index is dropped before (f), so each path reports its own peak
-memory.  The last three lines of standard output are the ``{"kernels": [...]}``
-JSON, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
-Without CUDA, or without ``src/repro_torch`` beside it, it exits non-zero
-and prints no result.
+The flat index is dropped before (f) and the sharded one before (g), so each
+path reports its own peak memory.  The last three lines of standard output
+are the ``{"kernels": [...]}`` JSON (eight kernels), the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+``src/repro_torch`` beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -54,6 +82,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 MISS = 0xFFFFFFFF
 N_EXTRA = 1 << 14                # keys beyond the absent ones, for (f)
+# (g): the KV widths of qwen3_4b (src/repro/configs/qwen3_4b.py: 36 layers,
+# 32 query heads over 8 KV heads, head_dim 128) in bfloat16, at a cache one
+# card holds in a deployment: 16 sequences of up to 4096 tokens in 16-token
+# blocks (vLLM's default), a pool of 1.25 x the blocks they can fill
+KV_CONFIG = dict(layers=36, q_heads=32, kv_heads=8, head_dim=128, block=16,
+                 seqs=16, seq_capacity=4096, prompt_lens=(2048, 4000),
+                 prefill_group=4, decode_steps=64, async_seqs=8,
+                 async_len=1024, async_steps=16, system_prompt=1024,
+                 vocab=151936)
 
 
 def log(*a) -> None:
@@ -266,6 +303,154 @@ def phase_kernels(torch, np, seed: int) -> None:
     torch.cuda.synchronize()
 
 
+BF16_STEP = 2.0 ** -7            # bfloat16's relative step (8-bit significand)
+
+
+def attn_limit(torch, want):
+    """The largest |got - want| a sound decode kernel may show, element by
+    element.  float32: ``tests/test_kernels.py``'s 2e-5 (1 + |want|) (sums in
+    another order).  bfloat16: both sides sum in float32 and round once to
+    bfloat16, so they differ by one bfloat16 step of the element at most
+    (2^-7 |want|), plus what float32 sums in another order move, which stays
+    under half a step of the output's scale (2^-8 max |want|).  A kernel that
+    drops a token, skips a chunk or moves the window edge goes past it:
+    ``wrong_variants`` shows that at each shape checked."""
+    w = want.float().abs()
+    if want.dtype == torch.bfloat16:
+        return BF16_STEP * w + BF16_STEP / 2 * w.max()
+    return 2e-5 * (1 + w)
+
+
+def err_ratio(torch, got, want) -> tuple:
+    """(largest |got - want| over ``attn_limit``, largest |got - want|)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)}, {tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    ratio = torch.where(diff > 0, diff / attn_limit(torch, want), 0.0)
+    return float(ratio.max()), float(diff.max())
+
+
+def close(torch, got, want) -> tuple:
+    """(largest |got - want| over its limit, largest |got - want|); raises
+    unless every element of ``got`` is within ``attn_limit`` of ``want``."""
+    ratio, err = err_ratio(torch, got, want)
+    if not ratio <= 1:
+        raise AssertionError(f"max |err| {err} over the limit ({want.dtype}):"
+                             f" |err| / limit up to {ratio}")
+    return ratio, err
+
+
+def wrong_variants(torch, want, q, k, v, ctx, window=None, softcap=None):
+    """The plain version of three wrong kernels on the same inputs (q (B, KV,
+    G, hd), k/v (B, KV, S, hd)): the last live token dropped, the middle
+    64-token chunk of each context skipped, and (with ``window``) the window
+    edge moved out by one token.  Each must go past ``attn_limit`` of
+    ``want``, or the check could not tell it from a sound kernel; returns
+    each one's |err| / limit, the smallest of which is the check's margin."""
+    from repro_torch.kernels import ref
+    S = k.shape[2]
+    ctx = ctx.long()[:, None]
+    pos = torch.arange(S, device=q.device)[None]
+    first = (ctx - window).clamp_min(0) if window is not None else 0 * ctx
+    live = (pos < ctx) & (pos >= first)
+    mid = (first + ctx) // 2 // 64 * 64
+    masks = {"last token dropped": live & (pos != ctx - 1),
+             "a 64-token chunk skipped": live & ((pos < mid) | (pos >= mid + 64))}
+    if window is not None:
+        masks["window edge moved by one"] = live | ((pos == first - 1)
+                                                    & (pos >= 0))
+    out = {}
+    for name, m in masks.items():
+        bad = ref._decode_live(q, k, v, m, softcap)
+        ratio, _ = err_ratio(torch, bad.reshape(want.shape), want)
+        if not ratio > 1:
+            raise AssertionError(f"a wrong kernel ({name}) is within the "
+                                 f"limit: |err| / limit {ratio}")
+        out[name] = ratio
+    return out
+
+
+def phase_attention(torch, np, seed: int) -> None:
+    """(c), the decode kernels: each against its plain version, float32 and
+    bfloat16, through ``ops`` (transposed views and pools, read in place)
+    and on contiguous inputs; contexts off the tile, 0 and S_cap; a -1
+    table entry inside the context and an all -1 row; the widths of
+    qwen3_4b (KV 8, G 4) and of gemma2_27b (KV 16, G 2, softcap 50.0,
+    window 4096 cutting an 8192 context), and G = 3 at hd 64."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.shortcut_attention import shortcut_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    rng = np.random.default_rng(seed + 100)
+    bs = 16
+    cases = [  # name, B, KV, G, hd, S_cap, ctx, window, softcap
+        ("qwen3_4b widths", 3, 8, 4, 128, 200, [0, 77, 200], None, None),
+        ("gemma2_27b widths", 2, 16, 2, 128, 8192, [8192, 5001], 4096, 50.0),
+        ("G=3, hd=64", 2, 1, 3, 64, 130, [130, 1], None, 7.0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, KV, G, hd, S, ctx, window, softcap in cases:
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            H, MB = KV * G, -(-S // bs)
+            q = randn(B, H, hd)
+            vk, vv = randn(B, S, KV, hd), randn(B, S, KV, hd)
+            lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            qk = q.reshape(B, KV, G, hd)
+            want = ref.decode_attention_ref(
+                qk, vk.transpose(1, 2), vv.transpose(1, 2), lens,
+                window=window, softcap=softcap).reshape(B, H, hd)
+            got = ops.decode_shortcut(q, vk, vv, lens, window=window,
+                                      softcap=softcap)
+            checks = [close(torch, got, want)]
+            margins = wrong_variants(
+                torch, want, qk, vk.transpose(1, 2), vv.transpose(1, 2),
+                lens, window, softcap)
+            got = shortcut_attention(qk, vk.transpose(1, 2).contiguous(),
+                                     vv.transpose(1, 2).contiguous(), lens,
+                                     window=window, softcap=softcap)
+            checks.append(close(torch, got.reshape(B, H, hd), want))
+            for b, c in enumerate(ctx):
+                if c == 0:
+                    assert not got[b].any(), f"(c) {name}: ctx 0 not zeros"
+            # the same contexts in a shuffled pool (cache layout), one -1
+            # entry inside the context of the last sequence, and the first
+            # sequence's row all -1 (zeros whatever its length)
+            blocks = torch.from_numpy(rng.permutation(B * MB)).to(dev)
+            tables = blocks.reshape(B, MB).to(torch.int32)
+            kp = torch.zeros((B * MB * bs, KV, hd), dtype=dtype, device=dev)
+            vp = torch.zeros_like(kp)
+            pos = (tables.long()[:, :, None] * bs
+                   + torch.arange(bs, device=dev)).reshape(B, MB * bs)[:, :S]
+            kp[pos] = vk
+            vp[pos] = vv
+            kp, vp = kp.reshape(-1, bs, KV, hd), vp.reshape(-1, bs, KV, hd)
+            if window is None:
+                got = ops.decode_paged(q, kp, vp, tables, lens,
+                                       softcap=softcap)
+                checks.append(close(torch, got, want))
+            tables[-1, (ctx[-1] - 1) // bs // 2] = -1
+            tables[0] = -1
+            want = ref.paged_attention_ref(
+                qk, kp.transpose(1, 2), vp.transpose(1, 2), tables,
+                lens, softcap=softcap).reshape(B, H, hd)
+            got = ops.decode_paged(q, kp, vp, tables, lens, softcap=softcap)
+            checks.append(close(torch, got, want))
+            got = paged_attention(qk, kp.transpose(1, 2).contiguous(),
+                                  vp.transpose(1, 2).contiguous(), tables,
+                                  lens, softcap=softcap)
+            checks.append(close(torch, got.reshape(B, H, hd), want))
+            assert not got[0].any(), f"(c) {name}: all -1 row not zeros"
+            ratio, err = map(max, zip(*checks))
+            log(f"(c) decode kernels == plain ({str(dtype)[6:]}, {name}: B "
+                f"{B}, KV {KV}, G {G}, hd {hd}, S_cap {S}, ctx {ctx}, window "
+                f"{window}, softcap {softcap}; strided and contiguous; a -1 "
+                f"entry and an all -1 row): max |err| {err:.3g}, |err| / "
+                f"limit {ratio:.3g}; wrong kernels' |err| / limit "
+                + ", ".join(f"{k} {r:.3g}" for k, r in margins.items()))
+    torch.cuda.synchronize()
+
+
 def lookup_bytes(keys, directory, table_keys, table_vals, depth) -> int:
     """Bytes a lookup of ``keys`` must move: each key read and each value
     written, the directory entry (traditional route), the probed key slots
@@ -415,17 +600,18 @@ def err(a, b) -> int:
 
 
 def _row(name, source, replaces, launches, ms, plain_ms, bytes_,
-         max_err) -> dict:
+         max_err, library_ms=None, phase="e") -> dict:
     """One entry of the ``{"kernels": [...]}`` line; the bound is the bytes
     the function must move over the card's memory rate."""
     bound = bytes_ / HBM_BYTES_PER_S * 1e3
-    log(f"(e) {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({bytes_} B), max |err| {max_err}, launches "
-        f"{launches.get(name, 0)}")
+    log(f"({phase}) {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({bytes_} B), library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, max "
+        f"|err| {max_err}, launches {launches.get(name, 0)}")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms}
 
 
 def measure_kernels(torch, np, res, timer) -> list:
@@ -710,6 +896,381 @@ def measure_sharded(torch, np, res, timer, rows) -> None:
     assert not bad, f"(e) kernels differ from their plain versions: {bad}"
 
 
+def phase_kv(torch, np, args, timer) -> dict:
+    """(g): the KV serving layer at qwen3_4b's KV widths; returns what its
+    report and kernel rows need.  Launch counts cover steps 1-8 (the
+    per-kernel timings run between the sync and the async part, outside
+    the counts)."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kvcache import paged_cache as pc
+    from repro_torch.kvcache.prefix_index import PrefixCacheIndex
+    from repro_torch.kvcache.shortcut_cache import ShortcutKVManager
+    dev = torch.device("cuda")
+    c = KV_CONFIG
+    L, H, KV, hd = c["layers"], c["q_heads"], c["kv_heads"], c["head_dim"]
+    bs = c["block"]
+    B, cap, group = c["seqs"], c["seq_capacity"], c["prefill_group"]
+    MB = cap // bs
+    nblocks = 5 * B * MB // 4
+    G = H // KV
+    rng = np.random.default_rng(args.seed + 7)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    bf16 = torch.bfloat16
+    ids = np.arange(B)
+    ids_t = torch.from_numpy(ids).to(dev)
+    res = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+
+    def prompt_len():
+        lo, hi = c["prompt_lens"]
+        return bs * int(rng.integers(lo // bs, hi // bs + 1))
+
+    def decode(route, q, mgr, check_layers=()):
+        """The 36 layers' attention of one step on ``route``; each checked
+        layer held to the plain version."""
+        cache = mgr.cache
+        lens = cache.seq_lens[ids_t]
+        if route == "paged":
+            tables = cache.block_tables[ids_t]
+            outs = [ops.decode_paged(q, cache.k_pool[l], cache.v_pool[l],
+                                     tables, lens) for l in range(L)]
+        else:
+            sk, sv = mgr.view_stack()
+            outs = [ops.decode_shortcut(q, sk[0, l], sv[0, l], lens)
+                    for l in range(L)]
+        for l in check_layers:
+            want = ref.paged_attention_ref(
+                q.reshape(B, KV, G, hd), cache.k_pool[l].transpose(1, 2),
+                cache.v_pool[l].transpose(1, 2), cache.block_tables[ids_t],
+                lens).reshape(B, H, hd)
+            close(torch, outs[l], want)
+        return outs
+
+    def sync_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1. prefill, 4 groups of 4 sequences, one length per group
+    mgr = ShortcutKVManager(
+        pc.cache_create(L, nblocks, bs, KV, hd, B, MB, bf16, device=dev),
+        cap, num_shards=1, device=dev)
+    lens0 = []
+    for g0 in range(0, B, group):
+        S = prompt_len()
+        k, v = randn(L, group, S, KV, hd), randn(L, group, S, KV, hd)
+        mgr.prefill(ids[g0:g0 + group], k, v)
+        lens0 += [S] * group
+        del k, v
+    assert mgr.seq_lens(ids).tolist() == lens0
+    log(f"(g) prefilled {B} sequences of {sorted(set(lens0))} tokens in "
+        f"groups of {group}: L {L}, KV {KV}, hd {hd}, block {bs}, "
+        f"{nblocks} blocks; pools {2 * mgr.cache.k_pool.nbytes} B, view "
+        f"stack {sum(a.nbytes for a in mgr.view_stack())} B")
+
+    # 2. fragment: permute the physical blocks (pool rows, tables and free
+    # ring together, so the content is unchanged), as after evictions
+    perm = torch.from_numpy(rng.permutation(nblocks)).to(dev)
+    inv = torch.argsort(perm)
+    with mgr.group[0].lock:
+        old = mgr.cache
+        mgr.cache = old._replace(
+            k_pool=old.k_pool[:, inv], v_pool=old.v_pool[:, inv],
+            block_tables=torch.where(
+                old.block_tables >= 0,
+                perm[old.block_tables.clamp_min(0).long()].to(torch.int32),
+                old.block_tables),
+            free_ring=perm[old.free_ring.long()].to(torch.int32))
+        del old
+    frag = mgr.fragmentation(ids)
+    assert frag > 0.9 and mgr.route(ids) == "paged", (frag, mgr.route(ids))
+    res["create_ms"] = sync_ms(mgr.pump) / B
+    assert mgr.in_sync(ids) and mgr.route(ids) == "shortcut"
+    log(f"(g) fragmentation {frag:.4f}; create replay of {B} sequences: "
+        f"{res['create_ms']:.3f} ms per sequence; route shortcut")
+    tables0 = mgr.cache.block_tables.cpu().numpy()
+
+    # 3. the view against the paged gather, sequence by sequence: equal
+    # below seq_len, zeros past it
+    sk, sv = mgr.view_stack()
+    for s in ids.tolist():
+        n = lens0[s]
+        gk, gv = pc.gather_context(mgr.cache, [s])
+        for view, g in ((sk, gk), (sv, gv)):
+            row = view[0, :, s].transpose(1, 2)        # (L, KV, cap, hd)
+            assert equal_bits(row[:, :, :n], g[:, 0, :, :n]), f"(g) seq {s}"
+            assert not row[:, :, n:].any(), f"(g) seq {s}: nonzero tail"
+    del sk, sv, gk, gv, row
+    log(f"(g) composed view == gather_context bit for bit for all {B} "
+        "sequences, zeros past seq_len")
+
+    # 4-5. decode steps; a release and re-prefill part-way
+    victim = int(rng.integers(B))
+    others = np.delete(ids, victim)
+    res["append_ms"], res["pump_ms"] = [], []
+    for step in range(c["decode_steps"]):
+        if step == c["decode_steps"] // 2:
+            mgr.release([victim])
+            assert mgr.route(ids) == "paged"
+            assert mgr.route(others) == "shortcut"
+            q = randn(B, H, hd)
+            for route in ("paged", "shortcut"):
+                outs = decode(route, q, mgr, check_layers=(0,))
+                assert not any(o[victim].any() for o in outs), \
+                    f"(g) {route}: a released sequence did not decode to 0"
+            S = prompt_len()
+            mgr.prefill([victim], randn(L, 1, S, KV, hd),
+                        randn(L, 1, S, KV, hd))
+            assert mgr.route(ids) == "paged"
+            res["recreate_ms"] = sync_ms(mgr.pump)
+            assert mgr.route(ids) == "shortcut"
+            log(f"(g) step {step}: released sequence {victim} (both kernels "
+                f"decode it to zeros, route paged), re-prefilled {S} "
+                f"tokens, create replay {res['recreate_ms']:.3f} ms, route "
+                "shortcut")
+        q = randn(B, H, hd)
+        nk, nv = randn(L, B, KV, hd), randn(L, B, KV, hd)
+        res["append_ms"].append(sync_ms(lambda: mgr.append(ids, nk, nv)))
+        assert mgr.route(ids) == "paged"
+        check = (0, L - 1) if step % 8 == 0 else ()
+        paged = decode("paged", q, mgr, check)
+        res["pump_ms"].append(sync_ms(mgr.pump))
+        assert mgr.route(ids) == "shortcut"
+        short = decode("shortcut", q, mgr, check)
+        ratio, err = map(max, zip(*(close(torch, a, b)
+                                    for a, b in zip(paged, short))))
+    del paged, short
+    res["lens"] = mgr.seq_lens(ids)
+    log(f"(g) {c['decode_steps']} decode steps x {L} layers on both routes: "
+        f"routes agree (last step max |err| {err:.3g}, |err| / limit "
+        f"{ratio:.3g}); plain "
+        f"checks on layers 0 and {L - 1} every 8 steps; lengths now "
+        f"{res['lens'].min()}..{res['lens'].max()}")
+
+    # 6. get_context once on each route, against per-sequence gathers
+    for route in ("paged", "shortcut"):
+        before = (mgr.routed_paged, mgr.routed_shortcut)
+        k, v, got = mgr.get_context(ids, route=route)
+        assert got == route
+        for s in ids.tolist():
+            n = int(res["lens"][s])
+            gk, gv = pc.gather_context(mgr.cache, [s])
+            for a, g in ((k, gk), (v, gv)):
+                assert equal_bits(a[:, s, :, :n], g[:, 0, :, :n]), \
+                    f"(g) get_context {route} seq {s}"
+                if route == "shortcut":
+                    assert not a[:, s, :, n:].any()
+        del k, v, gk, gv
+        moved = (mgr.routed_paged - before[0], mgr.routed_shortcut - before[1])
+        assert moved == ((1, 0) if route == "paged" else (0, 1)), moved
+    log("(g) get_context on each route == per-sequence gather_context bit "
+        "for bit (shortcut zeros past seq_len); route counters moved by 1")
+    torch.cuda.synchronize()
+    res["launches"] = _build.launches()
+    res["sync_peak"] = torch.cuda.max_memory_allocated()
+
+    # timings at the full batch (outside the launch counts)
+    res.update(measure_kv(torch, mgr, timer, ids_t, randn(B, H, hd)))
+    res["stats"] = mgr.stats
+    mgr.close()
+    del mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+
+    # 7. async mappers, 2 shards: decodes race the publishes
+    aB, alen = c["async_seqs"], c["async_len"]
+    acap = 2 * alen
+    aids = np.arange(aB)
+    aids_t = torch.from_numpy(aids).to(dev)
+    t0 = time.perf_counter()
+    amgr = ShortcutKVManager(
+        pc.cache_create(L, aB * acap // bs, bs, KV, hd, aB, acap // bs, bf16,
+                        device=dev),
+        acap, num_shards=2, async_mapper=True, poll_interval=0.025,
+        frag_threshold=0.0, device=dev)
+    with amgr:
+        amgr.prefill(aids, randn(L, aB, alen, KV, hd),
+                     randn(L, aB, alen, KV, hd))
+        routes = {"paged": 0, "shortcut": 0}
+        for step in range(c["async_steps"]):
+            amgr.append(aids, randn(L, aB, KV, hd), randn(L, aB, KV, hd))
+            if step % 2:
+                assert amgr.wait_in_sync(aids, timeout=60.0)
+            q = randn(aB, H, hd)
+            route = amgr.route(aids)
+            cache = amgr.cache        # the main thread is the only writer
+            lens = cache.seq_lens[aids_t]
+            routes[route] += 1
+            if route == "paged":
+                tables = cache.block_tables[aids_t]
+                outs = [ops.decode_paged(q, cache.k_pool[l], cache.v_pool[l],
+                                         tables, lens) for l in range(L)]
+            else:
+                sk, sv = amgr.view_stack()
+                outs = [torch.empty_like(q) for _ in range(L)]
+                for s in range(2):            # each shard's rows in place
+                    sel = aids_t[s::2]
+                    for l in range(L):
+                        outs[l][sel] = ops.decode_shortcut(
+                            q[sel], sk[s, l], sv[s, l], lens[sel])
+            gk, gv = pc.gather_context(cache, aids)
+            for l in range(L):
+                want = ref.decode_attention_ref(
+                    q.reshape(aB, KV, G, hd), gk[l], gv[l],
+                    lens).reshape(aB, H, hd)
+                close(torch, outs[l], want)
+            del gk, gv
+        assert routes["paged"] >= 1 and routes["shortcut"] >= 1, routes
+        log(f"(g) async mappers (2 shards, 25 ms poll): {aB} sequences of "
+            f"{alen} tokens, {c['async_steps']} decode steps racing the "
+            f"publishes, every layer held to the plain version over "
+            f"gather_context; routes {routes}; {amgr.stats}; "
+            f"{time.perf_counter() - t0:.3f} s")
+    del amgr
+
+    # 8. prefix index over the 16 prompts: a shared system prompt, then
+    # each prompt's own tokens; prompt i > 0 reuses prompt 0's shared blocks
+    sys_len = c["system_prompt"]
+    vocab = c["vocab"]
+    system = rng.integers(0, vocab, sys_len).tolist()
+    prompts = [system + rng.integers(0, vocab, n - sys_len).tolist()
+               for n in lens0]
+    own = [tables0[s, :lens0[s] // bs].tolist() for s in ids.tolist()]
+    idx = PrefixCacheIndex(bs, device=dev)
+    registered = []
+    for s, toks in enumerate(prompts):
+        n, shared = idx.match_prefix(toks)
+        assert n == (0 if s == 0 else sys_len), (s, n)
+        blocks = shared + own[s][len(shared):]
+        idx.insert_prefix(toks, blocks)
+        registered.append(blocks)
+        idx.pump()
+    for toks, blocks in zip(prompts, registered):
+        assert idx.match_prefix(toks) == (len(toks), blocks)
+    diverging = system + rng.integers(0, vocab, 512).tolist()
+    assert idx.match_prefix(diverging) == (sys_len,
+                                           registered[0][:sys_len // bs])
+    st = idx.stats()
+    assert st["in_sync"] and st["prefix_routed_shortcut"] >= B, st
+    idx.close()
+    log(f"(g) prefix index: {B} prompts ({sys_len}-token system prompt) "
+        f"registered, each matched to all its blocks, a diverging prompt to "
+        f"the {sys_len // bs} shared ones; {st}")
+    torch.cuda.synchronize()
+    for k, n in _build.launches().items():
+        res["launches"][k] = res["launches"].get(k, 0) + n
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"(g) kernel launches on the KV path: {res['launches']}")
+    for k in ("shortcut_attention", "paged_attention", "eh_lookup",
+              "eh_insert"):
+        assert res["launches"].get(k, 0) >= 1, f"(g) {k} never launched"
+    return res
+
+
+def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
+    """Per-route decode step (36 layer calls) and per-kernel times on
+    layer 0 at the full batch, with plain and library times and bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    c = KV_CONFIG
+    L, KV, hd, bs = c["layers"], c["kv_heads"], c["head_dim"], c["block"]
+    B, H = q.shape[:2]
+    G = H // KV
+    cache = mgr.cache
+    lens = cache.seq_lens[ids_t]
+    tables = cache.block_tables[ids_t]
+    sk, sv = mgr.view_stack()
+    out = {}
+    out["paged_step_ms"], _ = timer(lambda: [
+        ops.decode_paged(q, cache.k_pool[l], cache.v_pool[l], tables, lens)
+        for l in range(L)])
+    out["shortcut_step_ms"], _ = timer(lambda: [
+        ops.decode_shortcut(q, sk[0, l], sv[0, l], lens) for l in range(L)])
+    # the copy-on-write part of an append: one clone of each pool
+    out["pool_clone_ms"], _ = timer(lambda: [
+        cache.k_pool.clone(), cache.v_pool.clone()] and None)
+    live = int(lens.sum())
+    nblk = int(((lens + bs - 1) // bs).sum())
+    io = live * KV * hd * 2 * 2 + 2 * q.nbytes      # K, V rows; q and out
+    qk = q.reshape(B, KV, G, hd)
+    rows = []
+    # paged, layer 0
+    kp, vp = cache.k_pool[0], cache.v_pool[0]
+    ms, got = timer(lambda: ops.decode_paged(q, kp, vp, tables, lens))
+    plain_ms, want = timer(lambda: ref.paged_attention_ref(
+        qk, kp.transpose(1, 2), vp.transpose(1, 2), tables, lens).reshape(
+            B, H, hd), reps=3, warmup=1)
+    ratio, err = close(torch, got, want)
+    out["limit_ratio"] = {"paged_attention": ratio}
+    rows.append(("paged_attention", "src/repro/kernels/paged_attention.py:112",
+                 ms, plain_ms, io + 4 * nblk + 4 * B, err, None))
+    # shortcut, layer 0, read in place from the installed stack
+    vk, vv = sk[0, 0], sv[0, 0]
+    ms, got = timer(lambda: ops.decode_shortcut(q, vk, vv, lens))
+    plain_ms, want = timer(lambda: ref.decode_attention_ref(
+        qk, vk.transpose(1, 2), vv.transpose(1, 2), lens).reshape(B, H, hd),
+        reps=3, warmup=1)
+    mask = (torch.arange(vk.shape[1], device=q.device)[None]
+            < lens[:, None].long())[:, None, None, :]
+    lib_ms, lib = timer(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], vk.transpose(1, 2), vv.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True))
+    out["library_err"] = err_ratio(torch, lib[:, :, 0], want)
+    ratio, err = close(torch, got, want)
+    out["limit_ratio"]["shortcut_attention"] = ratio
+    out["wrong_variants"] = wrong_variants(
+        torch, want, qk, vk.transpose(1, 2), vv.transpose(1, 2), lens)
+    rows.append(("shortcut_attention",
+                 "src/repro/kernels/shortcut_attention.py:114", ms, plain_ms,
+                 io + 4 * B, err, lib_ms))
+    out["rows"] = rows
+    out["live_tokens"] = live
+    return out
+
+
+def report_kv(kres, smi, kernels) -> None:
+    """(g)'s report lines, and its two rows of the kernels line."""
+    c = KV_CONFIG
+    log(f"(g) decode step ({c['layers']} layer calls, {c['seqs']} sequences, "
+        f"{kres['live_tokens']} live tokens, mean of 3 warm steps): paged "
+        f"{kres['paged_step_ms']:.4f} ms, shortcut "
+        f"{kres['shortcut_step_ms']:.4f} ms; card {smi}")
+    app, pump = kres["append_ms"], kres["pump_ms"]
+    log(f"(g) per decode step, mean of {len(app)} (host clock + sync): "
+        f"append {sum(app) / len(app):.4f} ms (of which cloning both pools "
+        f"{kres['pool_clone_ms']:.4f} ms, CUDA events), update replay + "
+        f"publish (pump) {sum(pump) / len(pump):.4f} ms (min {min(pump):.4f}, "
+        f"max {max(pump):.4f})")
+    log(f"(g) create replay {kres['create_ms']:.4f} ms per sequence "
+        f"({c['seqs']} in one pump); one re-prefilled sequence "
+        f"{kres['recreate_ms']:.4f} ms")
+    log(f"(g) max_memory_allocated {kres['peak_bytes']} B over (g) "
+        f"({kres['sync_peak']} B over its sync part); {kres['seconds']:.1f} s")
+    lib_ratio, lib_err = kres["library_err"]
+    log(f"(g) {kres['stats']}; library (scaled_dot_product_attention) max "
+        f"|err| vs plain {lib_err:.3g} (|err| / limit {lib_ratio:.3g})")
+    log("(g) layer 0, full batch: |err| / limit (2^-7 |want| + 2^-8 max "
+        "|want|) of the kernels "
+        + ", ".join(f"{k} {r:.3g}" for k, r in kres["limit_ratio"].items())
+        + "; of wrong kernels' plain versions "
+        + ", ".join(f"{k} {r:.3g}" for k, r in kres["wrong_variants"].items()))
+    for name, replaces, ms, plain_ms, bytes_, max_err, lib_ms in kres["rows"]:
+        kernels.append(_row(
+            name, "src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces, kres["launches"], ms, plain_ms, bytes_, max_err,
+            library_ms=lib_ms, phase="g"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -737,6 +1298,7 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build(_build)
     phase_kernels(torch, np, args.seed)
+    phase_attention(torch, np, args.seed)
     res = phase_main(torch, np, args, timer)
     n = res["n_keys"] + res["n_absent"]
     log(f"(e) insert {res['insert_s']:.6f} s for {res['n_keys']} keys; "
@@ -770,6 +1332,11 @@ def main() -> int:
     log(f"(f) max_memory_allocated {sres['peak_bytes']} B")
     measure_sharded(torch, np, sres, timer, kernels)
     sres["idx"].close()
+    del sres, data               # drop the sharded index: (g) has its own peak
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    report_kv(phase_kv(torch, np, args, timer), smi, kernels)
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,11 @@
-"""numpy <-> port conversions for the index state and the composed view.
+"""numpy <-> port conversions for the index state, the composed view, the
+paged KV cache and the KV view pair.
 
 The JAX package's arrays cross over as numpy (``np.asarray`` of each field),
 so that a test can start both packages from the same state and compare
 their results field by field.  :func:`stack_shards` turns per-shard states
 and composed views into the stacked operands of the sharded lookups.
+bfloat16 crosses numpy as float32 (bf16 -> f32 -> bf16 is exact).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.core.extendible_hashing import EHState
 from repro_torch.device import resolve_device
+from repro_torch.kvcache.paged_cache import PagedKVCache
 
 _INT32 = ("directory", "counts", "local_depth", "global_depth",
           "num_buckets", "dropped")
@@ -88,3 +91,47 @@ def stack_shards(states, views=None, *, device=None) -> tuple:
 
     log2s = _to_tensor(np.asarray([v[2] for v in views]), np.int32, dev)
     return trad, (padded(0), padded(1), log2s)
+
+
+def _float_tensor(a, dtype, device) -> torch.Tensor:
+    """A float array (bfloat16 too) as a tensor of ``dtype``, by default
+    bfloat16 for a bfloat16 array and float32 otherwise."""
+    a = np.asarray(a)
+    if dtype is None:
+        dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def _float_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def paged_cache_from_numpy(arrays, *, dtype=None, device=None) -> PagedKVCache:
+    """A ``PagedKVCache`` of tensors from its seven arrays in field order (a
+    JAX ``PagedKVCache`` passes as it is); pools of ``dtype`` (default:
+    bfloat16 for bfloat16 arrays, else float32), the rest int32."""
+    dev = resolve_device(device)
+    fields = dict(zip(PagedKVCache._fields, arrays))
+    if len(fields) != len(PagedKVCache._fields):
+        raise ValueError(f"expected {len(PagedKVCache._fields)} arrays")
+    return PagedKVCache(**{
+        f: (_float_tensor(a, dtype, dev) if f.endswith("_pool")
+            else _to_tensor(a, np.int32, dev)) for f, a in fields.items()})
+
+
+def paged_cache_to_numpy(cache: PagedKVCache) -> PagedKVCache:
+    """The same cache with numpy arrays; bfloat16 pools as float32."""
+    return PagedKVCache(*(_float_numpy(a) for a in cache))
+
+
+def kv_view_from_numpy(view, *, dtype=None, device=None) -> tuple:
+    """``(view_k, view_v)`` tensors from two float arrays."""
+    dev = resolve_device(device)
+    return tuple(_float_tensor(a, dtype, dev) for a in view)
+
+
+def kv_view_to_numpy(view) -> tuple:
+    """``(view_k, view_v)`` as numpy; bfloat16 as float32."""
+    return tuple(_float_numpy(a) for a in view)

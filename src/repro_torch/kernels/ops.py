@@ -1,12 +1,46 @@
-"""Entry points of the index kernels in the layouts the core uses (twin of
-the index part of ``repro/kernels/ops.py``).  The attention adapters come
-with their kernels in later slices."""
+"""Entry points of the kernels in the layouts their callers use (twin of
+``repro/kernels/ops.py``, all but ``mha_forward``, which comes with the
+model stack).  Each adapts model-layout tensors to the kernel's layout with
+views only: the kernels take strides, so no pool or view is copied."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.eh_lookup import eh_lookup, shortcut_lookup
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ragged_copy import ragged_copy
+from repro_torch.kernels.shortcut_attention import shortcut_attention
+
+
+def decode_shortcut(q, view_k, view_v, ctx_len, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Serve-layout shortcut decode.
+
+    q: (B, H, hd); view_k/v: (B, S_cap, KV, hd); ctx_len: (B,).
+    Returns (B, H, hd)."""
+    B, H, hd = q.shape
+    KV = view_k.shape[2]
+    qk = q.reshape(B, KV, H // KV, hd)
+    o = shortcut_attention(qk, view_k.transpose(1, 2), view_v.transpose(1, 2),
+                           ctx_len, window=window, softcap=softcap)
+    return o.reshape(B, H, hd)
+
+
+def decode_paged(q, k_pool, v_pool, block_tables, seq_lens, *,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    """Serve-layout paged decode.
+
+    q: (B, H, hd); pools: (nblocks, bs, KV, hd) (cache layout);
+    block_tables: (B, MB); seq_lens: (B,).  Returns (B, H, hd)."""
+    B, H, hd = q.shape
+    KV = k_pool.shape[2]
+    qk = q.reshape(B, KV, H // KV, hd)
+    o = paged_attention(qk, k_pool.transpose(1, 2), v_pool.transpose(1, 2),
+                        block_tables, seq_lens, softcap=softcap)
+    return o.reshape(B, H, hd)
 
 
 def eh_lookup_op(keys, st, *, tile: int = 256) -> torch.Tensor:

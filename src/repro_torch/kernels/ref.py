@@ -106,3 +106,78 @@ def ragged_copy_ref(view, pool, slots, offsets) -> torch.Tensor:
     v = hashing.storage_view(view)
     v[slots[keep]] = hashing.storage_view(pool)[offsets[keep]]
     return view
+
+
+# -- decode attention --------------------------------------------------------
+#
+# These follow the TPU kernels (``shortcut_attention.py``,
+# ``paged_attention.py``) where they differ from the JAX package's
+# ``decode_attention_ref`` and ``paged_attention_ref``: a row with no live
+# position (``ctx_len == 0``, or every block of a paged row unset) is all
+# **zeros**, as the kernels' clamp ``l = max(l, 1e-30)`` over an untouched
+# accumulator gives, not the mean of V that a softmax over an all-masked row
+# gives; and a paged block whose table entry is -1 is skipped even below
+# ``seq_lens``.
+
+def softcap_ref(x, cap):
+    return cap * torch.tanh(x / cap)
+
+
+def _decode_live(q, k_ctx, v_ctx, live, softcap):
+    """Softmax attention of q (B, KV, G, hd) over the positions of k_ctx/v_ctx
+    (B, KV, S, hd) where ``live`` (B, S) holds; f32 scores with q scaled by
+    ``hd**-0.5`` first, as the kernels do; zeros where no position is live."""
+    hd = q.shape[-1]
+    s = torch.einsum("bkgd,bksd->bkgs", q.float() * hd ** -0.5,
+                     k_ctx.float())
+    if softcap is not None:
+        s = softcap_ref(s, softcap)
+    live = live[:, None, None, :]
+    s = torch.where(live, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_ctx.float())
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _check_window(window) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def decode_attention_ref(q, k_ctx, v_ctx, ctx_len, *, window=None,
+                         softcap=None) -> torch.Tensor:
+    """Decode over a contiguous view.  q: (B, KV, G, hd); k_ctx/v_ctx:
+    (B, KV, S, hd); ctx_len: (B,) live tokens (positions ``[0, ctx_len)``,
+    and with ``window`` only those ``> ctx_len - 1 - window``).
+    Returns (B, KV, G, hd) in q's dtype."""
+    _check_window(window)
+    S = k_ctx.shape[2]
+    ctx = torch.as_tensor(ctx_len, device=q.device).long()[:, None]
+    pos = torch.arange(S, device=q.device)[None]
+    live = pos < ctx
+    if window is not None:
+        live &= pos > ctx - 1 - window
+    return _decode_live(q, k_ctx, v_ctx, live, softcap)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
+                        softcap=None) -> torch.Tensor:
+    """Decode through the block table.  q: (B, KV, G, hd); pools: (nblocks,
+    KV, bs, hd); block_tables: (B, MB) int32, -1 unset (skipped); seq_lens:
+    (B,).  Gathers the context, then attends over its live positions."""
+    B, KV, _, hd = q.shape
+    bs = k_pool.shape[2]
+    tables = torch.as_tensor(block_tables, device=q.device).long()
+    MB = tables.shape[1]
+    safe = tables.clamp_min(0)
+
+    def ctx(pool):             # (B, MB, KV, bs, hd) -> (B, KV, S, hd)
+        return pool[safe].permute(0, 2, 1, 3, 4).reshape(B, KV, MB * bs, hd)
+
+    pos = torch.arange(MB * bs, device=q.device)[None]
+    lens = torch.as_tensor(seq_lens, device=q.device).long()[:, None]
+    live = (pos < lens) & (tables >= 0).repeat_interleave(bs, dim=1)
+    return _decode_live(q, ctx(k_pool), ctx(v_pool), live, softcap)

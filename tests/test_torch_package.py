@@ -37,6 +37,14 @@ def test_imports_with_jax_and_repro_blocked():
             "sc.pump()\n"
             "assert sc.lookup([5, 6, 7, 8]).tolist() == "
             "[1, 2, 3, 0xFFFFFFFF]\n"
+            "import torch\n"
+            "from repro_torch.kvcache import ShortcutKVManager, cache_create\n"
+            "kv = ShortcutKVManager(cache_create(1, 8, 2, 1, 8, 2, 4, "
+            "torch.float32, device='cpu'), 8, device='cpu')\n"
+            "kv.prefill([0, 1], torch.ones(1, 2, 4, 1, 8), "
+            "torch.ones(1, 2, 4, 1, 8))\n"
+            "kv.pump()\n"
+            "assert kv.in_sync([0, 1]) and kv.route([0, 1]) == 'paged'\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m, v in sys.modules.items() if v)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -62,8 +70,14 @@ def test_default_device_is_cuda(monkeypatch):
     from repro_torch.core.rewiring import pool_create
     from repro_torch.core.shortcut_eh import ShortcutEH
     from repro_torch.device import resolve_device
+    from repro_torch.kvcache import ShortcutKVManager, cache_create
+    from repro_torch.kvcache.prefix_index import PrefixCacheIndex
+    cpu_cache = cache_create(1, 4, 2, 1, 8, 2, 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: ShortcutEH(4, 4, 8), lambda: pool_create(4, 2),
+                 lambda: cache_create(1, 4, 2, 1, 8, 2, 2),
+                 lambda: ShortcutKVManager(cpu_cache, 4),
+                 lambda: PrefixCacheIndex(4),
                  lambda: resolve_device(None),
                  lambda: resolve_device("cuda:0")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
