@@ -23,7 +23,14 @@ Phases, each of which raises on failure (exit code 1):
       row, strided (as ``ops.decode_*`` pass them) and contiguous inputs;
       at each shape the plain versions of wrong kernels (the last token
       dropped, a 64-token chunk skipped, the window edge moved by one) are
-      shown to go past that limit;
+      shown to go past that limit; the flash kernel in float32 and bfloat16
+      at tests/test_kernels.py's shapes (causal sweep, windows 16, 33 and
+      100, softcap 20, q shorter than the keys, ragged tails) and head_dim
+      256, contiguous and in the model layout through ``ops.mha_forward``,
+      then in bfloat16 at qwen3_4b's prefill layer shape (8 x 2048 tokens)
+      and at gemma2_27b's widths (window 4096, softcap 50, 8192 tokens),
+      each beside the plain versions of wrong kernels (the diagonal token
+      dropped, q_offset off by one, the window edge moved by one);
   (d) the flat path at full width: ``ShortcutEH(max_global_depth=16,
       bucket_slots=512, capacity=65536)`` takes 2**log2_keys unique keys
       in 16 batches, then lookups of every key and of 2**20 absent keys,
@@ -60,12 +67,28 @@ Phases, each of which raises on failure (exit code 1):
       create replay ms per sequence, peak memory, the kernels' |err| over
       the bfloat16 limit beside the wrong kernels' at the path's shapes, and
       both kernels' rows (with the time of ``scaled_dot_product_attention``
-      on the same view as the shortcut kernel's yardstick).
+      on the same view as the shortcut kernel's yardstick);
+  (h) the model on the card: qwen3_4b at its full width in bfloat16
+      (36 layers, d 2560, 32/8 heads x 128, d_ff 9728, vocab 151936; 4.02 B
+      parameters drawn from --seed on the card), a small server answering 8
+      requests: ``make_prefill_step`` on 8 prompts of 2048 seeded tokens
+      (36 flash launches per prefill), 32 greedy decode steps on the
+      shortcut route (``make_serve_step``) and on the paged route
+      (``make_paged_serve_step``, 16-token blocks, S_cap 2112 on both).
+      Checks: the routes' tokens identical, each route's last-step logits
+      within ``LOGIT_LIMIT`` (relative RMS) of a full forward over prompt
+      + fed tokens, a decode with the rope position off by one past it.
+      Reports prefill ms and tokens/s, decode ms per step and tokens/s per
+      route, each with the device's busy time from one ``torch.profiler``
+      trace, peak memory, and the flash row: its time at the prefill layer
+      shape against its bound, its plain version and
+      ``scaled_dot_product_attention(is_causal, enable_gqa)``.
 
-The flat index is dropped before (f) and the sharded one before (g), so each
-path reports its own peak memory.  The last three lines of standard output
-are the ``{"kernels": [...]}`` JSON (eight kernels), the ``nvidia-smi``
-line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+Each phase's wall seconds go on a line of their own.  The flat index is
+dropped before (f), the sharded one before (g) and the KV layer before (h),
+so each path reports its own peak memory.  The last three lines of standard
+output are the ``{"kernels": [...]}`` JSON (nine kernels), the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -80,6 +103,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
+PEAK_BF16 = 989e12               # H100 SXM dense bfloat16 tensor cores (same)
 MISS = 0xFFFFFFFF
 N_EXTRA = 1 << 14                # keys beyond the absent ones, for (f)
 # (g): the KV widths of qwen3_4b (src/repro/configs/qwen3_4b.py: 36 layers,
@@ -91,6 +115,20 @@ KV_CONFIG = dict(layers=36, q_heads=32, kv_heads=8, head_dim=128, block=16,
                  prefill_group=4, decode_steps=64, async_seqs=8,
                  async_len=1024, async_steps=16, system_prompt=1024,
                  vocab=151936)
+# (h): qwen3_4b (src/repro_torch/configs/qwen3_4b.py) at its full width in
+# bfloat16, weights drawn from --seed on the card; a small server answering
+# 8 requests of a realistic prompt length: 8 prompts of 2048 seeded tokens,
+# 32 greedy tokens on each route, S_cap 2112 = 132 blocks of 16 tokens so
+# that both routes attend over contexts of the same length
+MODEL_CONFIG = dict(arch="qwen3_4b", batch=8, prompt=2048, steps=32,
+                    block=16, s_cap=2112)
+# (h): the largest relative RMS error ||got - want|| / ||want|| of a
+# sequence's last-step decode logits against the full forward's (PERF.md
+# derives it): bfloat16 rounds each stored activation by up to 2^-9, the two
+# computations round at different points, about 10 per layer over 36
+# layers, which gives about sqrt(360) x 2^-9 / sqrt(3) = 0.021; the limit is
+# three times that.  A decode with the rope position off by one goes past it
+LOGIT_LIMIT = 0.06
 
 
 def log(*a) -> None:
@@ -145,6 +183,18 @@ class Timer:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps, last
+
+
+class PhaseClock:
+    """Logs each phase's wall seconds on a line of its own."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        log(f"({phase}) phase seconds {now - self.t:.1f}")
+        self.t = now
 
 
 def phase_device(torch) -> str:
@@ -451,6 +501,121 @@ def phase_attention(torch, np, seed: int) -> None:
     torch.cuda.synchronize()
 
 
+# (c), flash attention: name, q shape (B, KV, G, Sq, hd), Skv, window,
+# softcap, input scale.  tests/test_kernels.py's cases (the causal sweep, its
+# ragged 96-token case, windows 16, 33 and 100, softcap 20, q shorter than
+# the keys), q shorter with a ragged tail and a window under a tile, and
+# PaliGemma's head_dim 256 with 8 query heads over one kv head
+FLASH_CASES = [
+    ("sweep 1", (1, 1, 1, 64, 16), 64, None, None, 1.0),
+    ("sweep 2", (2, 2, 4, 128, 32), 128, None, None, 1.0),
+    ("sweep 3, ragged", (1, 4, 2, 96, 64), 96, None, None, 1.0),
+    ("sweep 4", (2, 1, 8, 128, 128), 128, None, None, 1.0),
+    ("window 16", (1, 2, 2, 128, 32), 128, 16, None, 1.0),
+    ("window 33", (1, 2, 2, 128, 32), 128, 33, None, 1.0),
+    ("window 100", (1, 2, 2, 128, 32), 128, 100, None, 1.0),
+    ("softcap 20", (1, 1, 2, 64, 32), 64, None, 20.0, 3.0),
+    ("Sq < Skv", (1, 2, 2, 32, 32), 128, None, None, 1.0),
+    ("Sq < Skv, ragged, window 33", (2, 1, 3, 20, 16), 100, 33, None, 1.0),
+    ("hd 256, G 8", (1, 1, 8, 300, 256), 300, None, None, 1.0),
+]
+# (c), flash attention in bfloat16 at the model widths: name, q shape, Skv,
+# window, softcap, sequences held to the plain version (None: all)
+FLASH_MODEL_CASES = [
+    ("qwen3_4b prefill layer", (8, 8, 4, 2048, 128), 2048, None, None, 2),
+    ("gemma2_27b widths", (1, 16, 2, 8192, 128), 8192, 4096, 50.0, None),
+]
+
+
+def flash_wrong_variants(torch, want, q, k, v, window=None, softcap=None):
+    """The plain version of three wrong flash kernels on the same inputs (q
+    (B, KV, G, Sq, hd), k/v (B, KV, Skv, hd)): the diagonal token dropped,
+    q_offset off by one, and (with ``window``) the window edge moved out by
+    one.  Each must go past ``attn_limit`` of ``want``; returns each one's
+    |err| / limit."""
+    from repro_torch.kernels import ref
+    Sq, Skv, dev = q.shape[3], k.shape[2], q.device
+    mask = ref.flash_mask(Sq, Skv, window=window, device=dev)
+    diag = (torch.arange(Sq, device=dev)[:, None] + Skv - Sq
+            == torch.arange(Skv, device=dev)[None, :])
+    masks = {"diagonal token dropped": mask & ~diag,
+             "q_offset off by one": ref.flash_mask(
+                 Sq, Skv, window=window, q_offset=Skv - Sq - 1, device=dev)}
+    if window is not None:
+        masks["window edge moved by one"] = ref.flash_mask(
+            Sq, Skv, window=window + 1, device=dev)
+    out = {}
+    for name, m in masks.items():
+        bad = ref.flash_attention_masked(q, k, v, m, softcap)
+        ratio, _ = err_ratio(torch, bad, want)
+        del bad
+        if not ratio > 1:
+            raise AssertionError(f"a wrong flash kernel ({name}) is within "
+                                 f"the limit: |err| / limit {ratio}")
+        out[name] = ratio
+    return out
+
+
+def phase_flash(torch, seed: int) -> None:
+    """(c), the flash kernel against its plain version: float32 and bfloat16
+    at ``FLASH_CASES`` (contiguous operands, and the model layout through
+    ``ops.mha_forward``: strided views in, (B, S, H, hd) out), then bfloat16
+    at qwen3_4b's prefill layer shape (8 x 2048 tokens, 32 query heads over
+    8 KV heads, hd 128; the plain version on 2 of the sequences) and at
+    gemma2_27b's widths (16 KV heads, G 2, hd 128) with window 4096 and
+    softcap 50 over 8192 tokens; at each shape the wrong kernels' plain
+    versions go past the limit."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 200)
+
+    def model_layout(shape, skv, dtype, scale):
+        B, KV, G, Sq, hd = shape
+        def randn(*s):
+            return (torch.randn(s, generator=gen, device=dev)
+                    * scale).to(dtype)
+        qm, km = randn(B, Sq, KV * G, hd), randn(B, skv, KV, hd)
+        vm = (torch.randn((B, skv, KV, hd), generator=gen,
+                          device=dev)).to(dtype)
+        q = qm.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
+        return qm, km, vm, q, km.transpose(1, 2), vm.transpose(1, 2)
+
+    def check(name, shape, skv, window, softcap, dtype, scale, n_plain=None):
+        qm, km, vm, q, k, v = model_layout(shape, skv, dtype, scale)
+        B, KV, G, Sq, hd = shape
+        n = B if n_plain is None else n_plain
+        want = ref.flash_attention_ref(q[:n], k[:n], v[:n], causal=True,
+                                       window=window, softcap=softcap)
+        got = ops.mha_forward(qm, km, vm, window=window, softcap=softcap)
+        got = got.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
+        checks = [close(torch, got[:n], want)]
+        del got
+        if n_plain is None:
+            got = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=window,
+                                  softcap=softcap)
+            checks.append(close(torch, got, want))
+            del got
+        margins = flash_wrong_variants(torch, want, q[:n], k[:n], v[:n],
+                                       window, softcap)
+        ratio, err = map(max, zip(*checks))
+        log(f"(c) flash kernel == plain ({str(dtype)[6:]}, {name}: q "
+            f"{tuple(shape)}, Skv {skv}, window {window}, softcap {softcap}"
+            f"{'' if n_plain is None else f'; plain on {n} of {B} sequences'}"
+            f"): max |err| {err:.3g}, |err| / limit {ratio:.3g}; wrong "
+            "kernels' |err| / limit "
+            + ", ".join(f"{k} {r:.3g}" for k, r in margins.items()))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, skv, window, softcap, scale in FLASH_CASES:
+            check(name, shape, skv, window, softcap, dtype, scale)
+    for name, shape, skv, window, softcap, n_plain in FLASH_MODEL_CASES:
+        check(name, shape, skv, window, softcap, torch.bfloat16, 1.0,
+              n_plain=n_plain)
+    torch.cuda.synchronize()
+
+
 def lookup_bytes(keys, directory, table_keys, table_vals, depth) -> int:
     """Bytes a lookup of ``keys`` must move: each key read and each value
     written, the directory entry (traditional route), the probed key slots
@@ -600,18 +765,23 @@ def err(a, b) -> int:
 
 
 def _row(name, source, replaces, launches, ms, plain_ms, bytes_,
-         max_err, library_ms=None, phase="e") -> dict:
-    """One entry of the ``{"kernels": [...]}`` line; the bound is the bytes
-    the function must move over the card's memory rate."""
-    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+         max_err, library_ms=None, phase="e", flops=0) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line; the bound is the larger
+    of the bytes the function must move over the card's memory rate and its
+    ``flops`` over the bfloat16 tensor-core peak."""
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_BF16 * 1e3
+    bound = max(by_bytes, by_ops)
+    bound_by = "operations" if by_ops > by_bytes else "bytes"
     log(f"({phase}) {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({bytes_} B), library "
+        f"{bound:.4f} ms ({bytes_} B, {flops} flops: {bound_by}), library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, max "
         f"|err| {max_err}, launches {launches.get(name, 0)}")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms}
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def measure_kernels(torch, np, res, timer) -> list:
@@ -1271,6 +1441,272 @@ def report_kv(kres, smi, kernels) -> None:
             library_ms=lib_ms, phase="g"))
 
 
+def profiled(torch, fn) -> tuple:
+    """``fn()`` once under ``torch.profiler``: its result, the device's busy
+    ms (the summed durations of the kernels and copies it ran, which one
+    stream runs one at a time) and their count; (result, None, 0) when the
+    trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return out, (busy if dev else None), len(dev)
+
+
+def rel_rms(torch, got, want) -> float:
+    """The largest, over sequences, of ||got - want|| / ||want|| along the
+    last axis (float32)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def phase_model(torch, args, timer) -> dict:
+    """(h): qwen3_4b at its full width, bfloat16, through the serving entry
+    points: ``make_prefill_step`` twice (the second timed) on 8 seeded
+    prompts of 2048 tokens, 32 greedy decode steps on the shortcut route
+    (``make_serve_step``) and on the paged route (``make_paged_serve_step``
+    over a cache written from the same prefill); then the checks: the routes'
+    tokens identical, each route's last-step decode logits within
+    ``LOGIT_LIMIT`` of a full forward over prompt + fed tokens (and a decode
+    with the rope position off by one past it), and 36 flash launches per
+    prefill.  Returns what its report and the flash row need."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from repro_torch.kvcache import paged_cache as pc
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve
+    dev = torch.device("cuda")
+    c = MODEL_CONFIG
+    cfg = get(c["arch"])
+    B, P, steps, bs, s_cap = (c[k] for k in ("batch", "prompt", "steps",
+                                             "block", "s_cap"))
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, args.seed, torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["n_params"] = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                         device=dev)
+    log(f"(h) {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {res['n_params']} parameters "
+        f"(bfloat16) drawn on the card in {res['init_s']:.3f} s")
+
+    # prefill three times: the first warms up, the second is timed, the
+    # third traced; all are counted
+    prefill = serve.make_prefill_step(cfg, s_cap, torch.bfloat16)
+    _build.reset_launches()
+    times = []
+    for i in range(3):
+        state = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 2:
+            (logits, state), *res["prefill_trace"] = profiled(
+                torch, lambda: prefill(params, {"tokens": toks}))
+        else:
+            logits, state = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res["prefill_s"] = times
+    launches = _build.launches()
+    res["launches"] = launches
+    assert launches.get("flash_attention", 0) == 3 * cfg.num_layers, \
+        f"(h) flash launches {launches}, expected {cfg.num_layers} per prefill"
+    assert set(launches) == {"flash_attention"}, launches
+    assert torch.isfinite(logits.float()).all(), "(h) prefill logits"
+    assert logits.shape == (B, cfg.vocab_size)
+    assert state.view_k.shape == (cfg.num_layers, B, cfg.num_kv_heads,
+                                  s_cap, cfg.resolved_head_dim)
+    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    # the paged cache, written from the prefill's keys and values
+    MB = s_cap // bs
+    cache = pc.cache_create(cfg.num_layers, B * MB, bs, cfg.num_kv_heads,
+                            cfg.resolved_head_dim, B, MB, torch.bfloat16,
+                            device=dev)
+    ids = torch.arange(B, device=dev)
+    cache = pc.write_prefill(cache, ids, state.view_k[:, :, :, :P]
+                             .transpose(2, 3), state.view_v[:, :, :, :P]
+                             .transpose(2, 3))
+
+    def last_logits(route, tok, ctx_state, positions=None):
+        """What the step consumes at the last step, and its logits: the
+        route's context through ``decode_step``, as the step computes it."""
+        if route == "shortcut":
+            ctx = M.LayerCache(k=ctx_state.view_k, v=ctx_state.view_v)
+            inc = ctx_state.ctx_len + 1
+        else:
+            k_ctx, v_ctx = pc.gather_context(ctx_state, ids)
+            ctx = M.LayerCache(k=k_ctx, v=v_ctx)
+            inc = ctx_state.seq_lens[ids] + 1
+        if positions is not None:
+            positions = inc - 1 + positions
+        return M.decode_step(params, cfg, tok, ctx, inc,
+                             positions=positions)[0]
+
+    routes = {}
+    step_fns = {"shortcut": serve.make_serve_step(cfg),
+                "paged": serve.make_paged_serve_step(cfg)}
+    for route, step in step_fns.items():
+        st = state if route == "shortcut" else cache
+        tok, fed, secs = tok0, [tok0], []
+        for i in range(steps):
+            if i == steps - 1:
+                routes[route + "_logits"] = last_logits(route, tok, st)
+                if route == "shortcut":
+                    routes["wrong_logits"] = last_logits(route, tok, st, 1)
+            def run():
+                if route == "shortcut":
+                    return step(params, st, tok)
+                return step(params, st, tok, ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 1:      # one step traced (left out of the timed mean)
+                (tok, st), *res[route + "_trace"] = profiled(torch, run)
+            else:
+                tok, st = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            fed.append(tok)
+        assert torch.equal(
+            tok, torch.argmax(routes[route + "_logits"], dim=-1).to(tok.dtype)
+        ), f"(h) {route}: the step's token is not its logits' argmax"
+        routes[route] = torch.stack(fed, dim=1)
+        res[route + "_step_s"] = secs
+        if route == "paged":
+            cache = st
+        del st
+    assert torch.equal(routes["shortcut"], routes["paged"]), \
+        "(h) the routes decoded different tokens"
+    assert int(cache.seq_lens.min()) == P + steps
+    res["route_logit_diff"] = float((routes["shortcut_logits"].float()
+                                     - routes["paged_logits"].float())
+                                    .abs().max())
+    res["tokens"] = routes["shortcut"]
+    torch.cuda.synchronize()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    # decode against the full forward over prompt + the fed tokens
+    del state, cache
+    full = torch.cat([toks, routes["shortcut"][:, :steps].long()], dim=1)
+    want, _ = M.prefill_forward(params, cfg, {"tokens": full})
+    res["errors"] = {k: rel_rms(torch, routes[k + "_logits"], want)
+                     for k in ("shortcut", "paged", "wrong")}
+    res["want_rms"] = float(want.float().square().mean().sqrt())
+    for k in ("shortcut", "paged"):
+        if not res["errors"][k] <= LOGIT_LIMIT:
+            raise AssertionError(
+                f"(h) {k} decode logits off the full forward by "
+                f"{res['errors'][k]} (relative RMS) > {LOGIT_LIMIT}")
+    if not res["errors"]["wrong"] > LOGIT_LIMIT:
+        raise AssertionError(
+            f"(h) a decode with the rope position off by one is within the "
+            f"limit: {res['errors']['wrong']} <= {LOGIT_LIMIT}")
+    res["params"], res["cfg"] = params, cfg
+    return res
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def measure_flash(torch, mres, timer) -> tuple:
+    """The flash kernel at (h)'s prefill layer shape, on seeded bfloat16
+    operands in the model layout: its time, the plain version's and
+    ``scaled_dot_product_attention``'s (causal, GQA) on the same tensors,
+    the largest difference from plain, and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    cfg = mres["cfg"]
+    B, S = MODEL_CONFIG["batch"], MODEL_CONFIG["prompt"]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qm, km, vm = (torch.randn((B, S, n, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for n in (H, KV, KV))
+    ms, got = timer(lambda: ops.mha_forward(qm, km, vm))
+    q = qm.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    plain_ms, want = timer(lambda: ref.flash_attention_ref(
+        q, km.transpose(1, 2), vm.transpose(1, 2)), reps=1, warmup=1)
+    got = got.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    ratio, err = close(torch, got, want)
+    lib_ms, lib = timer(lambda: F.scaled_dot_product_attention(
+        qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
+        is_causal=True, enable_gqa=True))
+    lib = lib.reshape(B, KV, H // KV, S, hd)
+    lib_ratio, lib_err = err_ratio(torch, lib, want)
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    bytes_ = 2 * (qm.nbytes + km.nbytes)        # q, k, v read; out written
+    log(f"(h) flash kernel at the prefill layer shape (q {tuple(qm.shape)}, "
+        f"k/v {tuple(km.shape)}, bfloat16): {ms:.4f} ms per layer call; "
+        f"plain {plain_ms:.4f} ms; scaled_dot_product_attention(is_causal, "
+        f"enable_gqa) {lib_ms:.4f} ms (|err| vs plain {lib_err:.3g}, / limit "
+        f"{lib_ratio:.3g}); bound "
+        f"{max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3:.4f} ms "
+        f"({flops} flops at 989 TFLOP/s, {bytes_} B at 3.35 TB/s); kernel "
+        f"|err| vs plain {err:.3g} (/ limit {ratio:.3g}); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    return ("flash_attention", "src/repro/kernels/flash_attention.py:122",
+            ms, plain_ms, bytes_, err, lib_ms, flops)
+
+
+def traced(busy, n, wall_ms) -> str:
+    """A trace's device time against the untraced wall time of the same
+    work (tracing itself costs seconds of host time)."""
+    if busy is None:
+        return "no device events in the trace (device time not measured)"
+    return (f"device busy {busy:.4f} ms, {n} kernels and copies; "
+            f"{100 * (1 - busy / wall_ms):.1f}% idle against the untraced "
+            f"{wall_ms:.4f} ms")
+
+
+def report_model(mres, smi, kernels, row) -> None:
+    """(h)'s report lines, and the flash row of the kernels line."""
+    c = MODEL_CONFIG
+    B, P = c["batch"], c["prompt"]
+    pre = mres["prefill_s"][1]
+    log(f"(h) prefill ({B} x {P} tokens, warm): {pre * 1e3:.4f} ms, "
+        f"{B * P / pre:.1f} tokens/s (first call "
+        f"{mres['prefill_s'][0] * 1e3:.4f} ms); flash launches "
+        f"{mres['launches']['flash_attention'] // 3} per prefill; card {smi}")
+    log("(h) third prefill traced: " + traced(*mres["prefill_trace"],
+                                              pre * 1e3))
+    for route in ("shortcut", "paged"):
+        secs = mres[route + "_step_s"][2:]
+        mean = sum(secs) / len(secs)
+        log(f"(h) decode, {route} route: {mean * 1e3:.4f} ms per step "
+            f"(mean of steps 3-{c['steps']}, host clock + sync; min "
+            f"{min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}), "
+            f"{B / mean:.1f} tokens/s; step 2 traced: "
+            + traced(*mres[route + "_trace"], mean * 1e3))
+    e = mres["errors"]
+    log(f"(h) tokens identical across routes ({B} x {c['steps'] + 1}); "
+        f"last-step logits: routes differ by at most "
+        f"{mres['route_logit_diff']:.3g}; relative RMS off the full forward "
+        f"(logit RMS {mres['want_rms']:.4f}): shortcut {e['shortcut']:.4g}, "
+        f"paged {e['paged']:.4g}, limit {LOGIT_LIMIT}; rope position off by "
+        f"one {e['wrong']:.4g}")
+    log(f"(h) max_memory_allocated {mres['peak_bytes']} B over prefill and "
+        f"decode")
+    name, replaces, ms, plain_ms, bytes_, err, lib_ms, flops = row
+    kernels.append(_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        replaces, mres["launches"], ms, plain_ms, bytes_, err,
+                        library_ms=lib_ms, phase="h", flops=flops))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1294,12 +1730,18 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_all = time.perf_counter()
+    clock = PhaseClock()
     timer = Timer(torch)
     smi = phase_device(torch)
+    clock.lap("a")
     phase_build(_build)
+    clock.lap("b")
     phase_kernels(torch, np, args.seed)
     phase_attention(torch, np, args.seed)
+    phase_flash(torch, args.seed)
+    clock.lap("c")
     res = phase_main(torch, np, args, timer)
+    clock.lap("d")
     n = res["n_keys"] + res["n_absent"]
     log(f"(e) insert {res['insert_s']:.6f} s for {res['n_keys']} keys; "
         f"maintenance {res['maint_s']:.6f} s; lookup traditional "
@@ -1313,6 +1755,7 @@ def main() -> int:
     del res                      # drop the flat index: (f) has its own peak
     gc.collect()
     torch.cuda.empty_cache()
+    clock.lap("e")
 
     sres = phase_sharded(torch, np, timer, data)
     n = sres["n_keys"] + sres["n_absent"]
@@ -1335,8 +1778,17 @@ def main() -> int:
     del sres, data               # drop the sharded index: (g) has its own peak
     gc.collect()
     torch.cuda.empty_cache()
+    clock.lap("f")
 
     report_kv(phase_kv(torch, np, args, timer), smi, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.lap("g")
+
+    mres = phase_model(torch, args, timer)
+    report_model(mres, smi, kernels, measure_flash(torch, mres, timer))
+    del mres
+    clock.lap("h")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 """numpy <-> port conversions for the index state, the composed view, the
-paged KV cache and the KV view pair.
+paged KV cache, the KV view pair, the model parameters and the serve
+decode state.
 
 The JAX package's arrays cross over as numpy (``np.asarray`` of each field),
 so that a test can start both packages from the same state and compare
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core.extendible_hashing import EHState
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.paged_cache import PagedKVCache
+from repro_torch.runtime.serve import DecodeState
 
 _INT32 = ("directory", "counts", "local_depth", "global_depth",
           "num_buckets", "dropped")
@@ -135,3 +137,46 @@ def kv_view_from_numpy(view, *, dtype=None, device=None) -> tuple:
 def kv_view_to_numpy(view) -> tuple:
     """``(view_k, view_v)`` as numpy; bfloat16 as float32."""
     return tuple(_float_numpy(a) for a in view)
+
+
+def params_from_numpy(tree, *, dtype=None, device=None):
+    """Model parameters as tensors from the JAX parameter pytree (a nested
+    dict of arrays: ``embed``, ``layers`` with its stacked (L, ...) arrays,
+    ``final_norm``, and ``lm_head`` when the embedding is not tied), each
+    array of ``dtype`` (default: bfloat16 for bfloat16 arrays, else
+    float32) on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _float_tensor(x, dtype, dev)
+
+    return conv(tree)
+
+
+def params_to_numpy(tree):
+    """The same nested dict with numpy arrays; bfloat16 as float32."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return _float_numpy(tree)
+
+
+def decode_state_from_numpy(arrays, *, dtype=None, device=None):
+    """A serve ``DecodeState`` of tensors from its five members in field
+    order (a JAX ``DecodeState`` passes as it is); () members stay ()."""
+    dev = resolve_device(device)
+    fields = dict(zip(DecodeState._fields, arrays))
+    if len(fields) != len(DecodeState._fields):
+        raise ValueError(f"expected {len(DecodeState._fields)} members")
+    return DecodeState(**{
+        f: (() if isinstance(a, tuple) else
+            _to_tensor(a, np.int32, dev) if f == "ctx_len" else
+            _float_tensor(a, dtype, dev)) for f, a in fields.items()})
+
+
+def decode_state_to_numpy(state):
+    """The same state with numpy arrays (() stays ()); bfloat16 as
+    float32."""
+    return type(state)(*(() if isinstance(a, tuple) else _float_numpy(a)
+                         for a in state))

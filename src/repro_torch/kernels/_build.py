@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("eh_lookup", "ragged_copy", "eh_insert", "decode_attention")
+SOURCES = ("eh_lookup", "ragged_copy", "eh_insert", "decode_attention",
+           "flash_attention")
 NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

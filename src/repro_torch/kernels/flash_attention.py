@@ -1,0 +1,96 @@
+"""Flash attention, forward (prefill), twin of
+``repro/kernels/flash_attention.py``.
+
+Causal, windowed and softcapped attention of q (B, KV, G, Sq, hd) over k/v
+(B, KV, Skv, hd), GQA folded into the query tile, q right-aligned against
+the keys (``q_offset = Skv - Sq``).  On a CUDA tensor it launches
+``csrc/flash_attention.cu``; on a CPU tensor it runs
+``ref.flash_attention_ref``.  There is no backward kernel (the TPU kernel has
+none), so an input that requires a gradient is refused.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LL4 = ctypes.c_longlong * 4
+_SIGNATURES = {"flash_attention_launch": [
+    _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.c_float, ctypes.c_float, _P]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def _check(q, k, v, causal: bool) -> None:
+    if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected q (B, KV, G, Sq, hd) "
+                         "and equal k, v (B, KV, Skv, hd)")
+    B, KV, _, Sq, hd = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, KV, hd):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch, kv heads or head_dim")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if causal and Sq > k.shape[2]:
+        raise ValueError(f"causal with Sq {Sq} > Skv {k.shape[2]}: the "
+                         "first rows would see no key")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention is forward only (no backward "
+                         "kernel); call it under torch.no_grad()")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    bq: int = 256, bkv: int = 512) -> torch.Tensor:
+    """q: (B, KV, G, Sq, hd); k/v: (B, KV, Skv, hd), any strides with a
+    contiguous last axis -> (B, KV, G, Sq, hd) in q's dtype.
+
+    On CUDA the result is a view of a (B, Sq, KV, G, hd) buffer, the model
+    layout, so that ``ops.mha_forward``'s transpose back costs no copy.
+    ``bq`` and ``bkv`` are the TPU kernel's tile sizes, which do not change
+    the answer; they are accepted and ignored (the CUDA kernel tiles by 64
+    query rows and 64 keys, and bounds-checks the ragged tails instead of
+    padding)."""
+    del bq, bkv
+    _check(q, k, v, causal)
+    ref._check_window(window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    B, KV, G, Sq, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not "
+                         "float32/bfloat16")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("flash_attention: tensors must share one CUDA "
+                             "device")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} with strides "
+                             f"{t.stride()} has a strided last axis")
+    out = torch.empty((B, Sq, KV, G, hd), dtype=q.dtype,
+                      device=dev).permute(0, 2, 3, 1, 4)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("flash_attention", _SIGNATURES)
+    err = lib.flash_attention_launch(
+        _DTYPES[q.dtype], q.data_ptr(), _LL4(*q.stride()[:4]), k.data_ptr(),
+        _LL4(*k.stride()[:3], 0), v.data_ptr(), _LL4(*v.stride()[:3], 0),
+        out.data_ptr(), _LL4(*out.stride()[:4]), B, KV, G, Sq, k.shape[2],
+        hd, int(causal), -1 if window is None else int(window),
+        -1.0 if softcap is None else float(softcap), hd ** -0.5,
+        _build.stream(dev))
+    _build.check(err, "flash_attention")
+    _build.count_launch("flash_attention")
+    return out

@@ -1,7 +1,7 @@
 """Entry points of the kernels in the layouts their callers use (twin of
-``repro/kernels/ops.py``, all but ``mha_forward``, which comes with the
-model stack).  Each adapts model-layout tensors to the kernel's layout with
-views only: the kernels take strides, so no pool or view is copied."""
+``repro/kernels/ops.py``).  Each adapts model-layout tensors to the
+kernel's layout with views only: the kernels take strides, so no pool, view
+or activation is copied."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,9 +9,28 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.eh_lookup import eh_lookup, shortcut_lookup
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ragged_copy import ragged_copy
 from repro_torch.kernels.shortcut_attention import shortcut_attention
+
+
+def mha_forward(q, k, v, *, causal: bool = True,
+                window: Optional[int] = None,
+                softcap: Optional[float] = None,
+                bq: int = 256, bkv: int = 512) -> torch.Tensor:
+    """Model-layout flash attention.
+
+    q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd).  The kernel
+    reads the transposed views in place and writes the model layout, so on
+    CUDA no operand or result is copied."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qk = q.reshape(B, Sq, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    o = flash_attention(qk, k.transpose(1, 2), v.transpose(1, 2),
+                        causal=causal, window=window, softcap=softcap,
+                        bq=bq, bkv=bkv)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
 def decode_shortcut(q, view_k, view_v, ctx_len, *,

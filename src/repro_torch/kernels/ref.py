@@ -181,3 +181,55 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     lens = torch.as_tensor(seq_lens, device=q.device).long()[:, None]
     live = (pos < lens) & (tables >= 0).repeat_interleave(bs, dim=1)
     return _decode_live(q, ctx(k_pool), ctx(v_pool), live, softcap)
+
+
+# -- flash attention (prefill) ----------------------------------------------
+#
+# A copy of the JAX package's ``flash_attention_ref`` (``repro/kernels/
+# ref.py:16-36``): the full score matrix in float32, masked with -1e30, a
+# softmax, then the value product.  For every row with a visible key this is
+# the TPU kernel's function (its -1e30 terms are corrected away exactly).
+
+_NEG_INF = -1e30
+
+
+def flash_mask(Sq: int, Skv: int, *, causal: bool = True, window=None,
+               q_offset=None, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: query row i sits at position ``i + q_offset``
+    (default ``Skv - Sq``, right-aligned) and sees key ``kpos`` when
+    ``qpos >= kpos`` (causal) and ``kpos > qpos - window``."""
+    _check_window(window)
+    off = Skv - Sq if q_offset is None else q_offset
+    qpos = torch.arange(Sq, device=device)[:, None] + off
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_masked(q, k, v, mask, softcap=None) -> torch.Tensor:
+    """Attention of q (B, KV, G, Sq, hd) over k/v (B, KV, Skv, hd) where
+    ``mask`` (Sq, Skv) holds; float32 scores, the score matrix updated in
+    place to keep one (B, KV, G, Sq, Skv) float32 buffer alive."""
+    hd = q.shape[-1]
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float(), k.float())
+    s.mul_(hd ** -0.5)
+    if softcap is not None:
+        s.div_(softcap).tanh_().mul_(softcap)
+    s.masked_fill_(~mask, _NEG_INF)
+    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    s.div_(s.sum(dim=-1, keepdim=True))
+    o = torch.einsum("bkgqs,bksd->bkgqd", s, v.float())
+    return o.to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        softcap=None) -> torch.Tensor:
+    """q: (B, KV, G, Sq, hd); k/v: (B, KV, Skv, hd) -> (B, KV, G, Sq, hd)
+    in q's dtype."""
+    mask = flash_mask(q.shape[3], k.shape[2], causal=causal, window=window,
+                      device=q.device)
+    return flash_attention_masked(q, k, v, mask, softcap)

@@ -1,0 +1,220 @@
+"""Grouped-query attention (twin of ``repro/models/attention.py``).
+
+Prefill attention, :func:`blockwise_attention`, has two routes with one
+function: on a CUDA tensor it is ``ops.mha_forward``, which launches the
+hand-written flash kernel (``kernels/csrc/flash_attention.cu``); on a CPU
+tensor it is the port of the reference's triangular-blockwise loop, an
+online softmax over only the key tiles each query tile's causal (and
+window) footprint touches.  The reference calls that loop the jnp oracle of
+its Pallas ``flash_attention``; both compute the same function.  Decode
+attention, :func:`decode_attention`, is plain PyTorch on both devices, as
+the reference computes it in XLA.
+
+Supports GQA/MQA, rope, qk-norm (qwen3), the attention logit softcap
+(gemma2), sliding windows and per-layer local/global switching.  The
+bidirectional prefix (PaliGemma, ``prefix_len > 0``) runs on the CPU only.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _dense_init, apply_rope, rms_norm, softcap
+
+_NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg, dtype, device) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    p = {
+        "wq": _dense_init(gen, (d, h * hd), d, dtype, device),
+        "wk": _dense_init(gen, (d, kv * hd), d, dtype, device),
+        "wv": _dense_init(gen, (d, kv * hd), d, dtype, device),
+        "wo": _dense_init(gen, (h * hd, d), h * hd, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p
+
+
+def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope applied."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _padding(cfg):
+    KV = cfg.num_kv_heads
+    G = cfg.num_heads // KV
+    return KV, G, cfg.pad_kv_heads or KV, cfg.pad_q_groups or G
+
+
+def pad_heads(q, k, v, cfg):
+    """Zero-pad q-groups / kv-heads to the configured counts.
+
+    q: (B,S,H,hd) with H = KV*G -> (B,S,KVp*Gp,hd); k/v: (B,S,KV,hd) ->
+    (B,S,KVp,hd).  Dead q-heads score zeros and their outputs are dropped by
+    :func:`unpad_heads` before ``wo``; dead kv-heads form whole dead groups,
+    so live outputs are unchanged."""
+    KV, G, KVp, Gp = _padding(cfg)
+    if (KVp, Gp) == (KV, G):
+        return q, k, v, cfg.num_heads
+    B, S, H, hd = q.shape
+    qg = F.pad(q.reshape(B, S, KV, G, hd), (0, 0, 0, Gp - G, 0, KVp - KV))
+    k = F.pad(k, (0, 0, 0, KVp - KV))
+    v = F.pad(v, (0, 0, 0, KVp - KV))
+    return qg.reshape(B, S, KVp * Gp, hd), k, v, KVp * Gp
+
+
+def unpad_heads(o, cfg):
+    """Drop dead heads: (B,S,KVp*Gp,hd) -> (B,S,H,hd)."""
+    KV, G, KVp, Gp = _padding(cfg)
+    if (KVp, Gp) == (KV, G):
+        return o
+    B, S, _, hd = o.shape
+    og = o.reshape(B, S, KVp, Gp, hd)[:, :, :KV, :G]
+    return og.reshape(B, S, KV * G, hd)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        chunk_q: int, chunk_kv: int, causal: bool = True,
+                        window: Optional[int] = None,
+                        attn_softcap: Optional[float] = None,
+                        prefix_len: int = 0) -> torch.Tensor:
+    """Flash-style attention.  q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd) ->
+    (B,Sq,H,hd) in q's dtype.
+
+    ``prefix_len`` marks a bidirectional prefix (PaliGemma image tokens):
+    positions < prefix_len attend to the whole prefix regardless of order.
+    On CUDA this is the flash kernel, which has no such mask yet, and
+    ``chunk_q``/``chunk_kv`` (the reference's XLA tiles) do not apply."""
+    if q.device.type == "cuda":
+        if prefix_len:
+            raise NotImplementedError(
+                "the CUDA flash kernel has no bidirectional-prefix mask "
+                "(PaliGemma; ROADMAP queue 1 item 11)")
+        return ops.mha_forward(q, k, v, causal=causal, window=window,
+                               softcap=attn_softcap)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if Sq % chunk_q:
+        chunk_q = Sq
+    if Skv % chunk_kv:
+        chunk_kv = Skv
+    qg = q.reshape(B, Sq, KV, G, hd) * hd ** -0.5
+    outs = []
+    for i in range(Sq // chunk_q):
+        q_blk = qg[:, i * chunk_q:(i + 1) * chunk_q]
+        q_pos = i * chunk_q + torch.arange(chunk_q, device=q.device)
+        hi = min(Skv, (i + 1) * chunk_q) if causal else Skv
+        hi = math.ceil(hi / chunk_kv) * chunk_kv
+        lo = 0
+        if window is not None and causal:
+            lo = max(0, (i * chunk_q - window)) // chunk_kv * chunk_kv
+            if prefix_len:
+                lo = 0  # the prefix is always visible
+        m = torch.full((B, KV, G, chunk_q), _NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, chunk_q), device=q.device)
+        acc = torch.zeros((B, KV, G, chunk_q, hd), device=q.device)
+        for c0 in range(lo, hi, chunk_kv):
+            kt, vt = k[:, c0:c0 + chunk_kv], v[:, c0:c0 + chunk_kv]
+            kp = c0 + torch.arange(chunk_kv, device=q.device)
+            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk.float(), kt.float())
+            if attn_softcap is not None:
+                s = softcap(s, attn_softcap)
+            mask = torch.ones((chunk_q, chunk_kv), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                cm = q_pos[:, None] >= kp[None, :]
+                if prefix_len:
+                    cm = cm | ((q_pos[:, None] < prefix_len)
+                               & (kp[None, :] < prefix_len))
+                mask &= cm
+            if window is not None:
+                wm = kp[None, :] > (q_pos[:, None] - window)
+                if prefix_len:
+                    wm = wm | (kp[None, :] < prefix_len)
+                mask &= wm
+            s = torch.where(mask, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            # p rounds to the value dtype first, as the reference's einsum
+            # takes it
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bckd->bkgqd", p.to(vt.dtype).float(), vt.float())
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, chunk_q, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_ctx: torch.Tensor,
+                     v_ctx: torch.Tensor, ctx_len: torch.Tensor, *,
+                     k_new: Optional[torch.Tensor] = None,
+                     v_new: Optional[torch.Tensor] = None,
+                     attn_softcap: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention over a materialized context, in plain PyTorch.
+
+    q: (B, H, hd); k_ctx/v_ctx: (B, KV, S, hd) (attention-native layout)
+    hold the *old* tokens at positions [0, ctx_len-1).  ``k_new``/``v_new``
+    (B, KV, hd) are the current token's projections, folded in by a split
+    softmax (``ctx_len`` counts the new token), which saves concatenating a
+    copy of the context.  Products take float32 operands (exact for
+    bfloat16), as the reference's ``preferred_element_type`` sums in
+    float32.
+
+    The float32 copies of the context are contiguous, so the products see
+    one layout whatever the caller's strides: the paged route's gathered
+    context is a strided view, the card sums a product of strided operands
+    in another order, and the last bits that moves flip greedy tokens where
+    two logits tie in bfloat16."""
+    B, H, hd = q.shape
+    KV, S = k_ctx.shape[1], k_ctx.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd) * hd ** -0.5
+    pos = torch.arange(S, device=q.device)[None]            # (1, S)
+    ctx_len = ctx_len.to(q.device).long()[:, None]
+    n_old = ctx_len - (0 if k_new is None else 1)
+    live = pos < n_old
+    if window is not None:
+        live &= pos > (ctx_len - 1 - window)
+    v_dtype = v_ctx.dtype
+    k_ctx, v_ctx = (c.to(torch.float32, memory_format=torch.contiguous_format)
+                    for c in (k_ctx, v_ctx))
+    s = torch.einsum("bkgd,bksd->bkgs", qg.float(), k_ctx)
+    if attn_softcap is not None:
+        s = softcap(s, attn_softcap)
+    s = torch.where(live[:, None, None], s, _NEG_INF)
+    if k_new is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bksd->bkgd", p.to(v_dtype).float(), v_ctx)
+        return o.reshape(B, H, hd).to(q.dtype)
+    s_self = torch.einsum("bkgd,bkd->bkg", qg.float(), k_new.float())
+    if attn_softcap is not None:
+        s_self = softcap(s_self, attn_softcap)
+    m = torch.maximum(s.amax(dim=-1), s_self)               # (B, KV, G)
+    p_ctx = torch.exp(s - m[..., None])
+    p_self = torch.exp(s_self - m)
+    denom = p_ctx.sum(dim=-1) + p_self
+    o = torch.einsum("bkgs,bksd->bkgd", p_ctx.to(v_dtype).float(), v_ctx)
+    o = (o + p_self[..., None] * v_new[:, :, None].float()) / denom[..., None]
+    return o.reshape(B, H, hd).to(q.dtype)

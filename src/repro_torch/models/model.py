@@ -1,0 +1,268 @@
+"""Decoder LM for the attention-only architectures (twin of
+``repro/models/model.py``): the prefill forward and the one-token decode.
+
+Parameters keep the reference's layout, a dictionary whose per-layer
+tensors are stacked over the layer axis (``params["layers"]["attn"]["wq"]``
+is (L, D, H*hd)); each layer reads the view ``[i]`` with no copy.  The
+reference's ``lax.scan`` over layer runs (and its remat) becomes a plain
+Python loop over the same runs (:func:`layer_runs`), and its
+``distributed.constrain`` sharding pins have no counterpart on one card.
+
+Not here yet (ROADMAP queue 1 item 11): MoE (``num_experts``), SSM
+(``has_ssm``), the PaliGemma prefix input (``prefix_embeddings``), and
+training (``train_forward``, ``chunked_softmax_xent``); each raises
+``NotImplementedError`` where the reference would run it.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
+                                       rms_norm, softcap)
+
+
+def _require_supported(cfg: ArchConfig) -> None:
+    missing = [name for name, on in (
+        ("SSM layers", cfg.has_ssm), ("MoE layers", cfg.num_experts),
+        ("the prefix_embeddings input", cfg.input_mode == "prefix_embeddings"),
+        ("attention-free layers", not cfg.has_attention)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
+            "queue 1 item 11: moe.py, ssm.py, the PaliGemma prefix)")
+
+
+# -- layer kinds / runs --------------------------------------------------------
+
+def layer_kinds(cfg: ArchConfig) -> list[str]:
+    """'global' (full causal) or 'local' (sliding window) per layer."""
+    L = cfg.num_layers
+    if cfg.sliding_window is None:
+        return ["global"] * L
+    if cfg.local_global_period:
+        p = cfg.local_global_period
+        return ["global" if i % p == p - 1 else "local" for i in range(L)]
+    if cfg.global_layers:
+        return ["global" if i in cfg.global_layers else "local"
+                for i in range(L)]
+    return ["local"] * L
+
+
+def layer_runs(cfg: ArchConfig) -> list[tuple[int, int, tuple[str, ...]]]:
+    """(start, length, kinds-per-step) segments, as the reference scans
+    them; the port walks their layers in order."""
+    kinds = layer_kinds(cfg)
+    L = cfg.num_layers
+    p = cfg.local_global_period
+    if p and L % p == 0:
+        return [(0, L, tuple(kinds[:p]))]
+    runs: list[tuple[int, int, tuple[str, ...]]] = []
+    i = 0
+    while i < L:
+        j = i
+        while j < L and kinds[j] == kinds[i]:
+            j += 1
+        runs.append((i, j - i, (kinds[i],)))
+        i = j
+    return runs
+
+
+def _layer_order(cfg: ArchConfig):
+    """(layer index, kind) in execution order, segmented by the runs."""
+    for start, length, kinds in layer_runs(cfg):
+        for i in range(length):
+            yield start + i, kinds[i % len(kinds)]
+
+
+# -- init ----------------------------------------------------------------------
+
+def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
+    _require_supported(cfg)
+    p: dict[str, Any] = {
+        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "attn": attn.attn_init(gen, cfg, dtype, device)}
+    if cfg.d_ff:
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _stack_into(dst: dict, i: int, src: dict, L: int) -> None:
+    for name, t in src.items():
+        if isinstance(t, dict):
+            _stack_into(dst.setdefault(name, {}), i, t, L)
+            continue
+        if name not in dst:
+            dst[name] = torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
+                                    device=t.device)
+        dst[name][i] = t
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, *,
+                device=None) -> dict:
+    """Random parameters drawn from ``seed`` on ``device`` (default
+    ``"cuda"``), one layer at a time into the stacked tensors, so that a
+    full-width init holds one layer's float32 draws at a time."""
+    _require_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "layers": {},
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    for i in range(cfg.num_layers):
+        _stack_into(params["layers"], i, layer_init(gen, cfg, dtype, dev),
+                    cfg.num_layers)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, dev).T.contiguous()
+    return params
+
+
+def _layer(layers: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# -- sublayer bodies -------------------------------------------------------------
+
+class LayerCache(NamedTuple):
+    """Per-layer decode cache pieces (stacked over L by the caller).  Unused
+    members are () placeholders, as in the reference."""
+    k: Any = ()
+    v: Any = ()
+    ssm: Any = ()
+
+
+def _mixer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
+           positions: torch.Tensor):
+    """Attention on pre-normed input (full sequence); returns the new
+    residual stream and the layer's (padded) k, v."""
+    x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
+    q, k, v, _ = attn.pad_heads(q, k, v, cfg)
+    window = cfg.sliding_window if kind == "local" else None
+    o = attn.blockwise_attention(
+        q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+        causal=True, window=window, attn_softcap=cfg.attn_softcap,
+        prefix_len=cfg.prefix_len)
+    B, S = x.shape[:2]
+    o = attn.unpad_heads(o, cfg)
+    return h + o.reshape(B, S, -1) @ lp["attn"]["wo"], k, v
+
+
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The dense MLP (the reference's MoE branch is not ported yet)."""
+    if not cfg.d_ff:
+        return h
+    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return h + mlp_apply(lp["mlp"], x, cfg.act)
+
+
+# -- full-sequence forward -------------------------------------------------------
+
+def _embed_inputs(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=params["embed"].device)
+        return params["embed"][tokens.long()]
+    if cfg.input_mode == "embeddings":
+        return batch["embeddings"].to(params["embed"].dtype)
+    _require_supported(cfg)
+    raise ValueError(cfg.input_mode)
+
+
+def forward_hidden(params, cfg: ArchConfig, batch: dict, *,
+                   want_cache: bool = False):
+    """Embed + all layers + final norm.  Returns (hidden (B,S,D), caches):
+    a :class:`LayerCache` of (L, B, S, KVp, hd) k and v with
+    ``want_cache``, else None.  (The reference also returns the MoE router's
+    auxiliary loss, which comes with MoE.)"""
+    _require_supported(cfg)
+    h = _embed_inputs(params, cfg, batch)
+    B, S = h.shape[:2]
+    positions = torch.arange(S, device=h.device)[None]
+    caches = None
+    for i, kind in _layer_order(cfg):
+        lp = _layer(params["layers"], i)
+        h, k, v = _mixer(lp, h, cfg, kind, positions)
+        h = _ffn(lp, h, cfg)
+        if want_cache:
+            if caches is None:
+                shape = (cfg.num_layers,) + tuple(k.shape)
+                caches = LayerCache(
+                    k=torch.empty(shape, dtype=k.dtype, device=k.device),
+                    v=torch.empty(shape, dtype=v.dtype, device=v.device))
+            caches.k[i] = k
+            caches.v[i] = v
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+
+
+def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out = h @ head
+    if cfg.final_softcap:
+        out = softcap(out, cfg.final_softcap)
+    return out
+
+
+# -- prefill -----------------------------------------------------------------
+
+@torch.no_grad()
+def prefill_forward(params, cfg: ArchConfig, batch: dict):
+    """Full forward returning (last-position logits, stacked caches)."""
+    h, caches = forward_hidden(params, cfg, batch, want_cache=True)
+    return _logits(params, cfg, h[:, -1]), caches
+
+
+# -- decode --------------------------------------------------------------------
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
+                ctx: LayerCache, ctx_len: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None):
+    """One-token decode.
+
+    token:   (B,) int current input token.
+    ctx:     stacked per-layer contexts, k/v: (L, B, KV, S_ctx, hd)
+             *materialized* (old tokens live in [0, ctx_len-1)).
+    ctx_len: (B,) context length INCLUDING the new token.
+    positions: (B,) rope position of the new token; default ``ctx_len - 1``
+             (a caller passes another only to show that a wrong one moves
+             the logits).
+
+    Returns (logits (B, V), LayerCache(k, v) of the new token's (L, B, KV,
+    hd) rows).  The caller appends them into its pool (paged) or view
+    (shortcut)."""
+    _require_supported(cfg)
+    dev = params["embed"].device
+    token = torch.as_tensor(token, device=dev).long()
+    ctx_len = torch.as_tensor(ctx_len, device=dev)
+    h = params["embed"][token][:, None]                     # (B, 1, D)
+    if positions is None:
+        positions = ctx_len - 1
+    positions = torch.as_tensor(positions, device=dev)[:, None]
+    kinds = layer_kinds(cfg)
+    B = token.shape[0]
+    new_k, new_v = [None] * cfg.num_layers, [None] * cfg.num_layers
+    for i, _ in _layer_order(cfg):
+        lp = _layer(params["layers"], i)
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
+        window = cfg.sliding_window if kinds[i] == "local" else None
+        o = attn.decode_attention(
+            q[:, 0], ctx.k[i], ctx.v[i], ctx_len, k_new=k[:, 0],
+            v_new=v[:, 0], attn_softcap=cfg.attn_softcap, window=window)
+        h = h + (o.reshape(B, -1) @ lp["attn"]["wo"])[:, None]
+        h = _ffn(lp, h, cfg)
+        new_k[i], new_v[i] = k[:, 0], v[:, 0]
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, h[:, 0])
+    return logits, LayerCache(k=torch.stack(new_k), v=torch.stack(new_v))

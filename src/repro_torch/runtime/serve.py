@@ -1,0 +1,195 @@
+"""Serving runtime: prefill and decode steps over the shortcut view or the
+paged cache (twin of ``repro/runtime/serve.py``).
+
+Two decode paths, the paper's two access paths:
+
+  * **shortcut** (:func:`make_serve_step`): decode over the contiguous
+    per-sequence view ``(L, B, KV, S_cap, hd)``; a token's position is
+    address arithmetic.
+  * **paged** (:func:`make_paged_serve_step`): decode through the block
+    table; ``paged_cache.gather_context`` materializes the context first.
+
+Per-shard decode states (:func:`shard_decode_state` /
+:func:`merge_decode_states`): row ``b`` belongs to shard ``b % N``, the
+partition of ``ShortcutKVManager``.
+
+The shortcut step writes the new token's K/V row into the state's view **in
+place** and returns the same view tensors: it consumes its input state, as
+the reference's jitted step does with donated buffers, instead of cloning
+the whole view each step.  The reference's ``decode_state_struct``,
+``decode_state_names`` and ``decode_state_specs`` describe mesh shardings
+and wait for ROADMAP queue 1 item 12; SSM state waits for item 11.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Sequence
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kvcache import paged_cache as pc
+from repro_torch.models import model as M
+
+
+class DecodeState(NamedTuple):
+    """Decode-time state.  Unused members are () (no SSM members yet)."""
+    view_k: Any           # (L, B, KV, S_cap, hd)
+    view_v: Any
+    ssm_conv: Any         # ()
+    ssm_state: Any        # ()
+    ctx_len: torch.Tensor  # (B,) int32 tokens already in the view
+
+
+def decode_state_init(cfg: ArchConfig, batch: int, s_cap: int,
+                      dtype=torch.bfloat16, *, device=None) -> DecodeState:
+    """A zero state on ``device`` (default ``"cuda"``)."""
+    M._require_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, s_cap,
+             cfg.resolved_head_dim)
+    return DecodeState(
+        view_k=torch.zeros(shape, dtype=dtype, device=dev),
+        view_v=torch.zeros(shape, dtype=dtype, device=dev),
+        ssm_conv=(), ssm_state=(),
+        ctx_len=torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Per-shard decode states.
+# ---------------------------------------------------------------------------
+
+def _take_rows(x, sl, axis: int):
+    """Slice the batch axis of a state member (() stays ())."""
+    if isinstance(x, tuple):
+        return ()
+    return x[(slice(None),) * axis + (sl,)]
+
+
+def shard_decode_state(state: DecodeState,
+                       num_shards: int) -> "list[DecodeState]":
+    """Split a whole-batch state into ``num_shards`` states; shard ``s``
+    owns rows ``s, s + N, s + 2N, ...`` (``ShortcutKVManager``'s
+    ``seq_id % N``).  Each member is a strided view of the whole-batch
+    tensor; an in-place serve step on a shard writes through to it."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    return [DecodeState(
+        view_k=_take_rows(state.view_k, slice(s, None, num_shards), 1),
+        view_v=_take_rows(state.view_v, slice(s, None, num_shards), 1),
+        ssm_conv=_take_rows(state.ssm_conv, slice(s, None, num_shards), 1),
+        ssm_state=_take_rows(state.ssm_state, slice(s, None, num_shards), 1),
+        ctx_len=state.ctx_len[s::num_shards])
+        for s in range(num_shards)]
+
+
+def merge_decode_states(states: "Sequence[DecodeState]") -> DecodeState:
+    """Inverse of :func:`shard_decode_state`: interleave the per-shard rows
+    back into one whole-batch state (row ``b`` from shard ``b % N``), as new
+    tensors."""
+    num_shards = len(states)
+    if num_shards == 1:
+        return states[0]
+    total = sum(int(st.ctx_len.shape[0]) for st in states)
+    dev = states[0].ctx_len.device
+    order = torch.cat([torch.arange(s, total, num_shards, device=dev)
+                       for s in range(num_shards)])
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(total, device=dev)
+
+    def merge(parts, axis):
+        if isinstance(parts[0], tuple):
+            return ()
+        return torch.cat(list(parts), dim=axis).index_select(axis, inv)
+
+    return DecodeState(
+        view_k=merge([st.view_k for st in states], 1),
+        view_v=merge([st.view_v for st in states], 1),
+        ssm_conv=merge([st.ssm_conv for st in states], 1),
+        ssm_state=merge([st.ssm_state for st in states], 1),
+        ctx_len=merge([st.ctx_len for st in states], 0))
+
+
+# ---------------------------------------------------------------------------
+# Prefill.
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ArchConfig, s_cap: int,
+                      dtype=torch.bfloat16) -> Callable:
+    """(params, batch) -> (last-position logits, DecodeState).
+
+    Runs the full forward once, then lays the per-layer caches out as the
+    S_cap-padded shortcut view (the serving layer's *create request*)."""
+    M._require_supported(cfg)
+
+    def prefill(params, batch):
+        logits, caches = M.prefill_forward(params, cfg, batch)
+        L, B, S, KV, hd = caches.k.shape
+        if S > s_cap:
+            raise ValueError(f"prompt of {S} tokens > s_cap {s_cap}")
+        dev = caches.k.device
+        views = []
+        for c in (caches.k, caches.v):
+            view = torch.zeros((L, B, KV, s_cap, hd), dtype=dtype, device=dev)
+            view[:, :, :, :S] = c.transpose(2, 3)
+            views.append(view)
+        ctx_len = torch.full((B,), S, dtype=torch.int32, device=dev)
+        return logits, DecodeState(view_k=views[0], view_v=views[1],
+                                   ssm_conv=(), ssm_state=(), ctx_len=ctx_len)
+    return prefill
+
+
+def _write_row(view: torch.Tensor, idx: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """view (L,B,KV,S,hd)[:, b, :, idx[b]] <- new (L,B,KV,hd), in place."""
+    b = torch.arange(view.shape[1], device=view.device)
+    view[:, b, :, idx.long()] = new.to(view.dtype).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# Decode: shortcut path.
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    """(params, state, token (B,)) -> (next_token (B,) int32, state).
+
+    The shortcut decode: attention reads the contiguous view, then the new
+    token's K/V row goes into position ``ctx_len`` of each sequence, in
+    place: the returned state shares the input's view tensors."""
+    M._require_supported(cfg)
+
+    def serve_step(params, state: DecodeState, token: torch.Tensor):
+        ctx = M.LayerCache(k=state.view_k, v=state.view_v)
+        ctx_len_inc = state.ctx_len + 1         # includes the current token
+        logits, new = M.decode_step(params, cfg, token, ctx, ctx_len_inc)
+        _write_row(state.view_k, state.ctx_len, new.k)
+        _write_row(state.view_v, state.ctx_len, new.v)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_token, state._replace(ctx_len=ctx_len_inc)
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Decode: paged (traditional) path.
+# ---------------------------------------------------------------------------
+
+def make_paged_serve_step(cfg: ArchConfig) -> Callable:
+    """(params, cache: PagedKVCache, token, seq_ids) -> (next_token, cache).
+
+    The context is gathered through the block table every step, then
+    attention runs over the gathered copy; the new rows are appended with
+    ``paged_cache.append_tokens`` (copy-on-write, as everywhere in the paged
+    cache)."""
+    M._require_supported(cfg)
+
+    def serve_step(params, cache: pc.PagedKVCache, token: torch.Tensor,
+                   seq_ids: torch.Tensor):
+        seq_ids = torch.as_tensor(seq_ids, device=cache.device).long()
+        k_ctx, v_ctx = pc.gather_context(cache, seq_ids)
+        ctx = M.LayerCache(k=k_ctx, v=v_ctx)
+        ctx_len_inc = cache.seq_lens[seq_ids] + 1
+        logits, new = M.decode_step(params, cfg, token, ctx, ctx_len_inc)
+        cache = pc.append_tokens(cache, seq_ids, new.k, new.v)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_token, cache
+    return serve_step

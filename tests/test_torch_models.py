@@ -1,0 +1,257 @@
+"""Port parity for the model stack: ``repro_torch.models`` (layers,
+attention, model) against ``repro.models`` on the same parameters (the JAX
+package's ``init_params`` carried across with ``convert.params_from_numpy``)
+and the same tokens, in float32 on the CPU at ``.reduced()`` widths, for the
+attention-only architectures.  Tolerance 1e-5 (rtol = atol): the two sum in
+other orders, and rope's float32 cos and sin may differ from XLA's by an
+ulp."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ASSIGNED as J_ASSIGNED
+from repro.configs import get as jget
+from repro.models import attention as jattn
+from repro.models import model as JM
+from repro_torch import convert
+from repro_torch.configs import ASSIGNED, get
+from repro_torch.models import attention as attn
+from repro_torch.models import model as M
+from repro_torch.runtime import serve
+
+B, S = 2, 64
+ATTN_ARCHS = ["qwen3_4b", "internlm2_1_8b", "gemma2_27b",
+              "command_r_plus_104b", "musicgen_medium"]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def close(t, j, **tol):
+    np.testing.assert_allclose(t.detach().float().numpy(),
+                               np.asarray(j, np.float32), **(tol or TOL))
+
+
+def setup(arch, seed=2, cfg_j=None):
+    """Both configs, both parameter sets, and seeded tokens (B, S + 1)."""
+    cfg_j = cfg_j or jget(arch).reduced()
+    cfg_t = get(arch).reduced()
+    if cfg_j != jget(arch).reduced():
+        cfg_t = dataclasses.replace(
+            cfg_t, **{f.name: getattr(cfg_j, f.name)
+                      for f in dataclasses.fields(cfg_j)})
+    jp = JM.init_params(cfg_j, jax.random.PRNGKey(seed), jnp.float32)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    toks = np.random.default_rng(seed).integers(
+        0, cfg_j.vocab_size, (B, S + 1)).astype(np.int32)
+    return cfg_j, cfg_t, jp, tp, toks
+
+
+def batches(cfg, params, toks, n, emb_of):
+    """The model input of the first ``n`` positions: tokens, or (for
+    embedding inputs) the embedding rows of the tokens, as the reference's
+    decode test feeds them."""
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": emb_of(params["embed"], toks[:, :n])}
+    return {"tokens": toks[:, :n]}
+
+
+def jbatch(cfg, jp, toks, n):
+    return batches(cfg, jp, jnp.asarray(toks), n, lambda e, t: e[t])
+
+
+def tbatch(cfg, tp, toks, n):
+    return batches(cfg, tp, torch.from_numpy(toks).long(), n,
+                   lambda e, t: e[t])
+
+
+def decode_ctx_j(caches, pad=16):
+    k = jnp.pad(caches.k.transpose(0, 1, 3, 2, 4),
+                ((0, 0), (0, 0), (0, 0), (0, pad), (0, 0)))
+    v = jnp.pad(caches.v.transpose(0, 1, 3, 2, 4),
+                ((0, 0), (0, 0), (0, 0), (0, pad), (0, 0)))
+    return JM.LayerCache(k=k, v=v, ssm=())
+
+
+def decode_ctx_t(caches, pad=16):
+    def lay(c):
+        return torch.nn.functional.pad(c.transpose(2, 3), (0, 0, 0, pad))
+    return M.LayerCache(k=lay(caches.k), v=lay(caches.v))
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    cfg_j, cfg_t, jp, tp, toks = setup(arch)
+    jl, jc = JM.prefill_forward(jp, cfg_j, jbatch(cfg_j, jp, toks, S))
+    tl, tc = M.prefill_forward(tp, cfg_t, tbatch(cfg_t, tp, toks, S))
+    assert tl.shape == (B, cfg_t.vocab_size)
+    close(tl, jl)
+    close(tc.k, jc.k)
+    close(tc.v, jc.v)
+
+    ctx_len = np.full((B,), S + 1, np.int32)
+    jlog, jnew = JM.decode_step(jp, cfg_j, jnp.asarray(toks[:, S]),
+                                decode_ctx_j(jc), jnp.asarray(ctx_len))
+    tlog, tnew = M.decode_step(tp, cfg_t, torch.from_numpy(toks[:, S]),
+                               decode_ctx_t(tc), torch.from_numpy(ctx_len))
+    close(tlog, jlog)
+    close(tnew.k, jnew.k)
+    close(tnew.v, jnew.v)
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_decode_matches_full_forward(arch):
+    """The reference's strongest cache check, on the port alone: prefill(S)
+    + decode_step == the full forward's logits at position S (the reference
+    test's 2e-4)."""
+    _, cfg, _, tp, toks = setup(arch)
+    want, _ = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S + 1))
+    _, caches = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S))
+    got, new = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
+                             decode_ctx_t(caches),
+                             torch.full((B,), S + 1, dtype=torch.int32))
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert new.k.shape == (cfg.num_layers, B, cfg.num_kv_heads,
+                           cfg.resolved_head_dim)
+    # a wrong rope position moves the logits past that tolerance
+    bad, _ = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
+                           decode_ctx_t(caches),
+                           torch.full((B,), S + 1, dtype=torch.int32),
+                           positions=torch.full((B,), S + 1))
+    assert (bad - want).abs().max() > 1e-2
+
+
+def test_layer_kinds_and_runs_match_jax():
+    assert ASSIGNED == J_ASSIGNED
+    for arch in ASSIGNED:
+        assert dataclasses.asdict(get(arch)) == \
+            dataclasses.asdict(jget(arch)), arch
+        assert M.layer_kinds(get(arch)) == JM.layer_kinds(jget(arch)), arch
+        assert M.layer_runs(get(arch)) == JM.layer_runs(jget(arch)), arch
+        assert M.layer_runs(get(arch).reduced()) == \
+            JM.layer_runs(jget(arch).reduced()), arch
+
+
+@pytest.mark.parametrize("pad_kv,pad_g", [(3, 0), (0, 4), (3, 3)])
+def test_pad_unpad_heads_match_jax(pad_kv, pad_g):
+    cfg_j = dataclasses.replace(jget("qwen3_4b").reduced(),
+                                pad_kv_heads=pad_kv, pad_q_groups=pad_g)
+    cfg_t = dataclasses.replace(get("qwen3_4b").reduced(),
+                                pad_kv_heads=pad_kv, pad_q_groups=pad_g)
+    rng = np.random.default_rng(7)
+    H, KV, hd = cfg_j.num_heads, cfg_j.num_kv_heads, cfg_j.resolved_head_dim
+    q, k, v = (rng.standard_normal((2, 5, n, hd)).astype(np.float32)
+               for n in (H, KV, KV))
+    jq, jk, jv, jn = jattn.pad_heads(*map(jnp.asarray, (q, k, v)), cfg_j)
+    tq, tk, tv, tn = attn.pad_heads(*map(torch.from_numpy, (q, k, v)), cfg_t)
+    assert tn == jn
+    for t, j in ((tq, jq), (tk, jk), (tv, jv)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(
+        attn.unpad_heads(tq, cfg_t).numpy(),
+        np.asarray(jattn.unpad_heads(jq, cfg_j)))
+    np.testing.assert_array_equal(attn.unpad_heads(tq, cfg_t).numpy(), q)
+
+
+def test_padded_prefill_matches_jax():
+    """A model with padded heads (dead q-groups and kv-heads): logits and
+    the padded caches as the reference gives them."""
+    cfg_j = dataclasses.replace(jget("qwen3_4b").reduced(), pad_kv_heads=3,
+                                pad_q_groups=3)
+    cfg_j, cfg_t, jp, tp, toks = setup("qwen3_4b", seed=3, cfg_j=cfg_j)
+    jl, jc = JM.prefill_forward(jp, cfg_j, jbatch(cfg_j, jp, toks, S))
+    tl, tc = M.prefill_forward(tp, cfg_t, tbatch(cfg_t, tp, toks, S))
+    assert tc.k.shape[3] == 3
+    close(tl, jl)
+    close(tc.k, jc.k)
+
+
+@pytest.mark.parametrize("prefix_len,window,softcap", [
+    (8, None, None), (8, 24, None), (20, 16, 30.0)])
+def test_blockwise_prefix_matches_jax(prefix_len, window, softcap):
+    rng = np.random.default_rng(8)
+    Bq, Sq, KV, G, hd = 2, 64, 2, 2, 16
+    q = rng.standard_normal((Bq, Sq, KV * G, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((Bq, Sq, KV, hd)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(chunk_q=16, chunk_kv=16, window=window, attn_softcap=softcap,
+              prefix_len=prefix_len)
+    want = jattn.blockwise_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    got = attn.blockwise_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    close(got, want)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (5, 7.0)])
+def test_decode_attention_matches_jax(window, softcap):
+    rng = np.random.default_rng(9)
+    Bd, KV, G, Sc, hd = 3, 2, 2, 24, 16
+    q = rng.standard_normal((Bd, KV * G, hd)).astype(np.float32)
+    kc, vc = (rng.standard_normal((Bd, KV, Sc, hd)).astype(np.float32)
+              for _ in range(2))
+    kn, vn = (rng.standard_normal((Bd, KV, hd)).astype(np.float32)
+              for _ in range(2))
+    ctx = np.array([1, 9, 24], np.int32)
+    for new in (False, True):
+        kw = dict(attn_softcap=softcap, window=window)
+        jkw, tkw = dict(kw), dict(kw)
+        if new:
+            jkw.update(k_new=jnp.asarray(kn), v_new=jnp.asarray(vn))
+            tkw.update(k_new=torch.from_numpy(kn), v_new=torch.from_numpy(vn))
+        want = jattn.decode_attention(*map(jnp.asarray, (q, kc, vc, ctx)),
+                                      **jkw)
+        got = attn.decode_attention(*map(torch.from_numpy, (q, kc, vc, ctx)),
+                                    **tkw)
+        close(got, want)
+
+
+def bf16_logit_errors(layers, d_model, prompt, steps=8, batch=2):
+    """The computation behind ``chip_smoke.LOGIT_LIMIT``, on the CPU: a
+    qwen3-shaped model (8 heads over 2 KV heads x 64, d_ff 3 d_model,
+    vocab 8192) in bfloat16 prefills ``prompt`` random tokens and serves
+    ``steps`` greedy steps; returns the largest per-sequence relative RMS
+    of the last step's decode logits against a full forward over prompt +
+    fed tokens, and the same for a decode with the rope position off by
+    one."""
+    cfg = dataclasses.replace(
+        get("qwen3_4b"), num_layers=layers, d_model=d_model, num_heads=8,
+        num_kv_heads=2, head_dim=64, d_ff=3 * d_model, vocab_size=8192,
+        attn_chunk_q=256, attn_chunk_kv=256)
+    params = M.init_params(cfg, 0, torch.bfloat16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen)
+    logits, state = serve.make_prefill_step(cfg, prompt + 2 * steps)(
+        params, {"tokens": toks})
+    tok = logits.argmax(-1).int()
+    fed, step = [tok], serve.make_serve_step(cfg)
+    for _ in range(steps - 1):
+        tok, state = step(params, state, tok)
+        fed.append(tok)
+    ctx = M.LayerCache(k=state.view_k, v=state.view_v)
+    inc = state.ctx_len + 1
+    got, _ = M.decode_step(params, cfg, tok, ctx, inc)
+    bad, _ = M.decode_step(params, cfg, tok, ctx, inc, positions=inc)
+    full = torch.cat([toks, torch.stack(fed, 1).long()], 1)
+    want, _ = M.prefill_forward(params, cfg, {"tokens": full})
+
+    def rel(x):
+        x, w = x.float(), want.float()
+        return float(((x - w).norm(dim=-1) / w.norm(dim=-1)).max())
+    return rel(got), rel(bad)
+
+
+def test_bf16_decode_logit_limit():
+    """chip_smoke.py's limit on bf16 decode logits against the full forward
+    (0.06 relative RMS) holds a sound decode and refuses one with the rope
+    position off by one, here at 12 layers of d 256."""
+    sound, wrong = bf16_logit_errors(12, 256, 128)
+    assert sound <= 0.06 < wrong, (sound, wrong)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "qwen2_moe_a2_7b",
+                                  "paligemma_3b", "hymba_1_5b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        M.init_params(get(arch).reduced(), 0, torch.float32, device="cpu")

@@ -45,6 +45,18 @@ def test_imports_with_jax_and_repro_blocked():
             "torch.ones(1, 2, 4, 1, 8))\n"
             "kv.pump()\n"
             "assert kv.in_sync([0, 1]) and kv.route([0, 1]) == 'paged'\n"
+            "from repro_torch.configs import get\n"
+            "from repro_torch.models import model as M\n"
+            "from repro_torch.runtime import serve\n"
+            "cfg = get('qwen3_4b').reduced()\n"
+            "p = M.init_params(cfg, 0, torch.float32, device='cpu')\n"
+            "logits, st = serve.make_prefill_step(cfg, 24)(\n"
+            "    p, {'tokens': torch.arange(32).reshape(2, 16)})\n"
+            "tok = logits.argmax(-1)\n"
+            "step = serve.make_serve_step(cfg)\n"
+            "for _ in range(2):\n"
+            "    tok, st = step(p, st, tok)\n"
+            "assert st.ctx_len.tolist() == [18, 18] and tok.shape == (2,)\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m, v in sys.modules.items() if v)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -72,12 +84,17 @@ def test_default_device_is_cuda(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.kvcache import ShortcutKVManager, cache_create
     from repro_torch.kvcache.prefix_index import PrefixCacheIndex
+    from repro_torch.configs import get
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serve import decode_state_init
+    cfg = get("qwen3_4b").reduced()
     cpu_cache = cache_create(1, 4, 2, 1, 8, 2, 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: ShortcutEH(4, 4, 8), lambda: pool_create(4, 2),
                  lambda: cache_create(1, 4, 2, 1, 8, 2, 2),
                  lambda: ShortcutKVManager(cpu_cache, 4),
                  lambda: PrefixCacheIndex(4),
+                 lambda: init_params(cfg), lambda: decode_state_init(cfg, 2, 8),
                  lambda: resolve_device(None),
                  lambda: resolve_device("cuda:0")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,0 +1,204 @@
+"""Port parity for the serving runtime: ``repro_torch.runtime.serve``'s
+prefill, shortcut and paged serve steps against ``repro.runtime.serve`` on
+the same parameters and tokens (``tests/test_serve_runtime.py``'s setup), in
+float32 on the CPU.  The greedy tokens must be equal, token for token, on
+both routes, to the JAX package's and to the no-cache ground truth; the
+views within 1e-5.  The per-shard decode states are held to the port's own
+whole-batch step, since the reference's sharded test fails (ROADMAP section
+3)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as jget
+from repro.kvcache import paged_cache as jpc
+from repro.models import model as JM
+from repro.runtime import serve as jserve
+from repro_torch import convert
+from repro_torch.configs import get
+from repro_torch.kvcache import paged_cache as pc
+from repro_torch.models import model as M
+from repro_torch.runtime import serve
+
+B, S, S_CAP, STEPS, BS = 2, 32, 64, 4, 8
+
+
+@pytest.fixture(scope="module", params=["qwen3_4b", "gemma2_27b"])
+def setup(request):
+    arch = request.param
+    cfg_j, cfg_t = jget(arch).reduced(), get(arch).reduced()
+    jp = JM.init_params(cfg_j, jax.random.PRNGKey(0), jnp.float32)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (B, S), 0,
+                                         cfg_j.vocab_size), np.int32)
+    return cfg_j, cfg_t, jp, tp, toks
+
+
+def ground_truth(cfg, params, toks, steps):
+    """Greedy decode by re-running the port's full forward (no cache)."""
+    cur, out = torch.tensor(toks).long(), []
+    for _ in range(steps):
+        logits, _ = M.prefill_forward(params, cfg, {"tokens": cur})
+        nxt = torch.argmax(logits, dim=-1)
+        out.append(nxt)
+        cur = torch.cat([cur, nxt[:, None]], dim=1)
+    return torch.stack(out, dim=1).numpy()
+
+
+def jax_shortcut(cfg, jp, toks):
+    prefill = jserve.make_prefill_step(cfg, s_cap=S_CAP, dtype=jnp.float32)
+    step = jax.jit(jserve.make_serve_step(cfg))
+    logits, state = prefill(jp, {"tokens": jnp.asarray(toks)})
+    tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    got = [tok]
+    for _ in range(STEPS - 1):
+        tok, state = step(jp, state, tok)
+        got.append(tok)
+    return np.asarray(jnp.stack(got, axis=1)), state
+
+
+def port_shortcut(cfg, tp, toks):
+    prefill = serve.make_prefill_step(cfg, S_CAP, torch.float32)
+    step = serve.make_serve_step(cfg)
+    logits, state = prefill(tp, {"tokens": torch.tensor(toks)})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    got = [tok]
+    for _ in range(STEPS - 1):
+        tok, state = step(tp, state, tok)
+        got.append(tok)
+    return torch.stack(got, dim=1).numpy(), state
+
+
+def test_shortcut_serve_matches_jax_and_ground_truth(setup):
+    cfg_j, cfg_t, jp, tp, toks = setup
+    want, jstate = jax_shortcut(cfg_j, jp, toks)
+    got, state = port_shortcut(cfg_t, tp, toks)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ground_truth(cfg_t, tp, toks, STEPS))
+    tst = convert.decode_state_to_numpy(state)
+    np.testing.assert_array_equal(tst.ctx_len, np.asarray(jstate.ctx_len))
+    for got, want in ((tst.view_k, jstate.view_k),
+                      (tst.view_v, jstate.view_v)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_paged_serve_matches_jax_and_ground_truth(setup):
+    cfg_j, cfg_t, jp, tp, toks = setup
+    dims = dict(num_blocks=32, block_size=BS, kv_heads=cfg_j.num_kv_heads,
+                head_dim=cfg_j.resolved_head_dim, max_seqs=B,
+                max_blocks_per_seq=S_CAP // BS)
+    jcache = jpc.cache_create(cfg_j.num_layers, dtype=jnp.float32, **dims)
+    jlog, jc = JM.prefill_forward(jp, cfg_j, {"tokens": jnp.asarray(toks)})
+    jcache = jpc.write_prefill(jcache, jnp.arange(B), jc.k, jc.v)
+    jstep = jax.jit(jserve.make_paged_serve_step(cfg_j))
+    cache = pc.cache_create(cfg_t.num_layers, dtype=torch.float32,
+                            device="cpu", **dims)
+    logits, c = M.prefill_forward(tp, cfg_t, {"tokens": torch.tensor(toks)})
+    cache = pc.write_prefill(cache, torch.arange(B), c.k, c.v)
+    step = serve.make_paged_serve_step(cfg_t)
+    jtok = jnp.argmax(jlog, axis=-1).astype(jnp.int32)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    want, got = [np.asarray(jtok)], [tok.numpy()]
+    ids = torch.arange(B, dtype=torch.int32)
+    for _ in range(STEPS - 1):
+        jtok, jcache = jstep(jp, jcache, jtok, jnp.arange(B, dtype=jnp.int32))
+        tok, cache = step(tp, cache, tok, ids)
+        want.append(np.asarray(jtok))
+        got.append(tok.numpy())
+    got = np.stack(got, axis=1)
+    np.testing.assert_array_equal(got, np.stack(want, axis=1))
+    np.testing.assert_array_equal(got, ground_truth(cfg_t, tp, toks, STEPS))
+    got_cache = convert.paged_cache_to_numpy(cache)
+    np.testing.assert_array_equal(got_cache.block_tables,
+                                  np.asarray(jcache.block_tables))
+    np.testing.assert_allclose(got_cache.k_pool, np.asarray(jcache.k_pool),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _marked_state(cfg, batch):
+    st = serve.decode_state_init(cfg, batch, 16, torch.float32, device="cpu")
+    rows = torch.arange(batch, dtype=torch.float32)[None, :, None, None, None]
+    return st._replace(view_k=st.view_k + rows, view_v=st.view_v - rows,
+                       ctx_len=torch.arange(batch, dtype=torch.int32) * 3)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 3])
+def test_shard_merge_decode_state_roundtrip(num_shards):
+    cfg = get("qwen3_4b").reduced()
+    st = _marked_state(cfg, 5)
+    parts = serve.shard_decode_state(st, num_shards)
+    assert len(parts) == num_shards
+    for s, p in enumerate(parts):
+        assert p.ctx_len.tolist() == st.ctx_len[s::num_shards].tolist()
+        assert p.view_k.shape[1] == len(range(s, 5, num_shards))
+        assert p.ssm_conv == () and p.ssm_state == ()
+    merged = serve.merge_decode_states(parts)
+    for got, want in zip(merged, st):
+        if isinstance(want, tuple):
+            assert got == ()
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2])
+def test_sharded_decode_matches_whole_batch(setup, num_shards):
+    """N per-shard decode loops, each stepping its own rows, give the
+    port's whole-batch tokens, and its state within 1e-5 (a smaller batch
+    sums its products in another order: about 2e-6 here)."""
+    _, cfg, _, tp, toks = setup
+    prefill = serve.make_prefill_step(cfg, S_CAP, torch.float32)
+    step = serve.make_serve_step(cfg)
+    logits, whole = prefill(tp, {"tokens": torch.tensor(toks)})
+    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+    whole_toks, wtok = [], tok0
+    for _ in range(3):
+        wtok, whole = step(tp, whole, wtok)
+        whole_toks.append(wtok)
+
+    _, state = prefill(tp, {"tokens": torch.tensor(toks)})
+    parts = serve.shard_decode_state(state, num_shards)
+    shard_toks = []
+    for s in range(num_shards):
+        t, st = tok0[s::num_shards], parts[s]
+        got = []
+        for _ in range(3):
+            t, st = step(tp, st, t)
+            got.append(t)
+        parts[s] = st
+        shard_toks.append(got)
+    for i, want in enumerate(whole_toks):
+        merged = torch.empty_like(want)
+        for s in range(num_shards):
+            merged[s::num_shards] = shard_toks[s][i]
+        assert torch.equal(merged, want)
+    merged = serve.merge_decode_states(parts)
+    assert torch.equal(merged.ctx_len, whole.ctx_len)
+    torch.testing.assert_close(merged.view_k, whole.view_k, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(merged.view_v, whole.view_v, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_decode_state_numpy_roundtrip():
+    cfg = jget("qwen3_4b").reduced()
+    jst = jserve.decode_state_init(cfg, batch=3, s_cap=16, dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    jst = jst._replace(
+        view_k=jnp.asarray(rng.standard_normal(jst.view_k.shape), jnp.float32),
+        view_v=jnp.asarray(rng.standard_normal(jst.view_v.shape),
+                           jnp.bfloat16),
+        ctx_len=jnp.asarray([3, 0, 16], jnp.int32))
+    st = convert.decode_state_from_numpy(jst, device="cpu")
+    assert st.view_k.dtype == torch.float32
+    assert st.view_v.dtype == torch.bfloat16
+    assert st.ctx_len.dtype == torch.int32 and st.ssm_conv == ()
+    back = convert.decode_state_to_numpy(st)
+    for got, want in zip(back, jst):
+        if isinstance(want, tuple):
+            assert got == ()
+        else:
+            np.testing.assert_array_equal(got, np.asarray(want, got.dtype))
