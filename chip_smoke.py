@@ -27,10 +27,14 @@ Phases, each of which raises on failure (exit code 1):
       at tests/test_kernels.py's shapes (causal sweep, windows 16, 33 and
       100, softcap 20, q shorter than the keys, ragged tails) and head_dim
       256, contiguous and in the model layout through ``ops.mha_forward``,
-      then in bfloat16 at qwen3_4b's prefill layer shape (8 x 2048 tokens)
-      and at gemma2_27b's widths (window 4096, softcap 50, 8192 tokens),
-      each beside the plain versions of wrong kernels (the diagonal token
-      dropped, q_offset off by one, the window edge moved by one);
+      then in bfloat16 at qwen3_4b's prefill layer shape (8 x 2048 tokens),
+      at gemma2_27b's widths (window 4096, softcap 50, 8192 tokens), at
+      hymba_1_5b's (G 5, hd 64, window 1024 over 1500 tokens) and at
+      musicgen_medium's (G 1, hd 64, 1000 tokens), each beside the plain
+      versions of wrong kernels (the diagonal token dropped, q_offset off
+      by one, the window edge moved by one); each flash line names the
+      kernel that ran: ``tensor-core`` (bfloat16 at hd 64, 128, 256) or
+      ``simt`` (float32, and bfloat16 at hd 16 and 32);
   (d) the flat path at full width: ``ShortcutEH(max_global_depth=16,
       bucket_slots=512, capacity=65536)`` takes 2**log2_keys unique keys
       in 16 batches, then lookups of every key and of 2**20 absent keys,
@@ -81,8 +85,8 @@ Phases, each of which raises on failure (exit code 1):
       Reports prefill ms and tokens/s, decode ms per step and tokens/s per
       route, each with the device's busy time from one ``torch.profiler``
       trace, peak memory, and the flash row: its time at the prefill layer
-      shape against its bound, its plain version and
-      ``scaled_dot_product_attention(is_causal, enable_gqa)``.
+      shape against its bound (with the share of the bound), its plain
+      version and ``scaled_dot_product_attention(is_causal, enable_gqa)``.
 
 Each phase's wall seconds go on a line of their own.  The flat index is
 dropped before (f), the sharded one before (g) and the KV layer before (h),
@@ -96,6 +100,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -209,16 +215,42 @@ def phase_device(torch) -> str:
     return smi
 
 
+def ptxas_summary(out: str) -> list:
+    """One line per kernel of ``nvcc -Xptxas -v`` output: its name
+    (demangled when ``c++filt`` is there), registers, spills and stack, and
+    any ptxas note that a wgmma was serialized or a wait injected."""
+    rows, notes, name = [], [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line and name:
+            rows.append([name, line.strip()])
+        elif "Used" in line and "registers" in line and rows:
+            rows[-1].append(line.split("info    :")[-1].strip())
+        elif "serialized" in line or "injected" in line:
+            notes.append(line.strip())
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout
+        for r, n in zip(rows, names.splitlines()):
+            n = n.replace("(anonymous namespace)::", "").split("(")[0]
+            r[0] = n.removeprefix("void ")
+    return [" | ".join(r) for r in rows] + notes
+
+
 def phase_build(_build) -> None:
     t0 = time.perf_counter()
     report = _build.build()
     for name, (secs, out) in sorted(report.items()):
         log(f"(b) built {name}.cu in {secs:.1f} s")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"(b)   {line.strip()}")
+        for line in ptxas_summary(out):
+            log(f"(b)   {line}")
     log(f"(b) build wall time {time.perf_counter() - t0:.1f} s "
         f"({len(report)} sources compiled)")
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, tc_smem_bytes
+    log("(b) flash_tc_kernel dynamic shared memory per CTA: " + ", ".join(
+        f"hd {hd} {tc_smem_bytes(hd)} B" for hd in TC_HEAD_DIMS))
 
 
 def equal_bits(a, b) -> bool:
@@ -520,10 +552,15 @@ FLASH_CASES = [
     ("hd 256, G 8", (1, 1, 8, 300, 256), 300, None, None, 1.0),
 ]
 # (c), flash attention in bfloat16 at the model widths: name, q shape, Skv,
-# window, softcap, sequences held to the plain version (None: all)
+# window, softcap, sequences held to the plain version (None: all).
+# hymba_1_5b: 25 query heads over 5 KV heads (G 5, which does not divide a
+# 64-row warpgroup) x 64, its 1024-token window over a ragged 1500 tokens;
+# musicgen_medium: 24 heads x 64 without GQA (G 1) over a ragged 1000
 FLASH_MODEL_CASES = [
     ("qwen3_4b prefill layer", (8, 8, 4, 2048, 128), 2048, None, None, 2),
     ("gemma2_27b widths", (1, 16, 2, 8192, 128), 8192, 4096, 50.0, None),
+    ("hymba_1_5b widths", (1, 5, 5, 1500, 64), 1500, 1024, None, None),
+    ("musicgen_medium widths", (2, 24, 1, 1000, 64), 1000, None, None, None),
 ]
 
 
@@ -561,12 +598,15 @@ def phase_flash(torch, seed: int) -> None:
     at ``FLASH_CASES`` (contiguous operands, and the model layout through
     ``ops.mha_forward``: strided views in, (B, S, H, hd) out), then bfloat16
     at qwen3_4b's prefill layer shape (8 x 2048 tokens, 32 query heads over
-    8 KV heads, hd 128; the plain version on 2 of the sequences) and at
+    8 KV heads, hd 128; the plain version on 2 of the sequences), at
     gemma2_27b's widths (16 KV heads, G 2, hd 128) with window 4096 and
-    softcap 50 over 8192 tokens; at each shape the wrong kernels' plain
-    versions go past the limit."""
+    softcap 50 over 8192 tokens, at hymba_1_5b's (KV 5, G 5, hd 64, window
+    1024 over 1500 tokens) and at musicgen_medium's (24 heads, G 1, hd 64,
+    1000 tokens); each line names the kernel that ran (``tensor-core`` or
+    ``simt``); at each shape the wrong kernels' plain versions go past the
+    limit."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_path
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 200)
 
@@ -600,7 +640,8 @@ def phase_flash(torch, seed: int) -> None:
         margins = flash_wrong_variants(torch, want, q[:n], k[:n], v[:n],
                                        window, softcap)
         ratio, err = map(max, zip(*checks))
-        log(f"(c) flash kernel == plain ({str(dtype)[6:]}, {name}: q "
+        log(f"(c) flash kernel ({kernel_path(dtype, hd)}) == plain "
+            f"({str(dtype)[6:]}, {name}: q "
             f"{tuple(shape)}, Skv {skv}, window {window}, softcap {softcap}"
             f"{'' if n_plain is None else f'; plain on {n} of {B} sequences'}"
             f"): max |err| {err:.3g}, |err| / limit {ratio:.3g}; wrong "
@@ -1630,6 +1671,7 @@ def measure_flash(torch, mres, timer) -> tuple:
     the largest difference from plain, and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import kernel_path
     cfg = mres["cfg"]
     B, S = MODEL_CONFIG["batch"], MODEL_CONFIG["prompt"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -1650,15 +1692,17 @@ def measure_flash(torch, mres, timer) -> tuple:
     lib_ratio, lib_err = err_ratio(torch, lib, want)
     flops = 4 * B * H * hd * S * (S + 1) // 2
     bytes_ = 2 * (qm.nbytes + km.nbytes)        # q, k, v read; out written
-    log(f"(h) flash kernel at the prefill layer shape (q {tuple(qm.shape)}, "
+    bound = max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3
+    log(f"(h) flash kernel ({kernel_path(qm.dtype, hd)}) at the prefill "
+        f"layer shape (q {tuple(qm.shape)}, "
         f"k/v {tuple(km.shape)}, bfloat16): {ms:.4f} ms per layer call; "
         f"plain {plain_ms:.4f} ms; scaled_dot_product_attention(is_causal, "
         f"enable_gqa) {lib_ms:.4f} ms (|err| vs plain {lib_err:.3g}, / limit "
-        f"{lib_ratio:.3g}); bound "
-        f"{max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3:.4f} ms "
+        f"{lib_ratio:.3g}); bound {bound:.4f} ms "
         f"({flops} flops at 989 TFLOP/s, {bytes_} B at 3.35 TB/s); kernel "
         f"|err| vs plain {err:.3g} (/ limit {ratio:.3g}); "
-        f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
+        f"{100 * bound / ms:.1f}% of the bound")
     return ("flash_attention", "src/repro/kernels/flash_attention.py:122",
             ms, plain_ms, bytes_, err, lib_ms, flops)
 

@@ -26,8 +26,10 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("eh_lookup", "ragged_copy", "eh_insert", "decode_attention",
            "flash_attention")
-NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# compute_90a, not plain -arch=sm_90a (whose PTX targets compute_90):
+# wgmma exists only for the "a" target
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}

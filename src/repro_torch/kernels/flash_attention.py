@@ -4,9 +4,12 @@
 Causal, windowed and softcapped attention of q (B, KV, G, Sq, hd) over k/v
 (B, KV, Skv, hd), GQA folded into the query tile, q right-aligned against
 the keys (``q_offset = Skv - Sq``).  On a CUDA tensor it launches
-``csrc/flash_attention.cu``; on a CPU tensor it runs
-``ref.flash_attention_ref``.  There is no backward kernel (the TPU kernel has
-none), so an input that requires a gradient is refused.
+``csrc/flash_attention.cu``, whose launcher picks one of two kernels by
+dtype and head_dim (:func:`kernel_path`): bfloat16 at ``TC_HEAD_DIMS`` runs
+on the tensor cores (``wgmma``, K/V tiles by TMA), everything else on the
+CUDA cores; on a CPU tensor it runs ``ref.flash_attention_ref``.  There is
+no backward kernel (the TPU kernel has none), so an input that requires a
+gradient is refused.
 """
 from __future__ import annotations
 
@@ -21,9 +24,44 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL4 = ctypes.c_longlong * 4
 _SIGNATURES = {"flash_attention_launch": [
     _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-    ctypes.c_float, ctypes.c_float, _P]}
+    ctypes.c_float, ctypes.c_float, _P], "flash_tc_smem_bytes": [_I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the tensor-core kernel (bfloat16 only)
+TC_HEAD_DIMS = (64, 128, 256)
+
+
+def kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """The kernel the launcher runs for ``dtype`` and ``hd``:
+    ``"tensor-core"`` (``flash_tc_kernel``) or ``"simt"``
+    (``flash_kernel``)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tensor-core"
+    return "simt"
+
+
+def tc_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one tensor-core CTA at head_dim ``hd``
+    (builds the library on first use)."""
+    return _build.load("flash_attention", _SIGNATURES).flash_tc_smem_bytes(hd)
+
+
+def check_tma(name: str, ptr: int, shape, strides, itemsize: int) -> None:
+    """Raise ``ValueError`` naming ``name`` unless the tensor-core kernel can
+    read the operand at address ``ptr`` with ``shape`` and element
+    ``strides``: a 16-byte-aligned base and, for every axis but the last
+    that is longer than 1, a stride that is a multiple of 16 bytes (what
+    TMA needs of k and v, and the 16-byte loads of q's rows)."""
+    if ptr % 16:
+        raise ValueError(f"flash_attention: {name} starts at {ptr:#x}, not "
+                         "16-byte aligned (the tensor-core kernel reads it "
+                         "in 16-byte units)")
+    for axis, (n, st) in enumerate(zip(shape[:-1], strides[:-1])):
+        if n > 1 and (st * itemsize) % 16:
+            raise ValueError(f"flash_attention: {name} has stride {st} "
+                             f"({st * itemsize} bytes) on axis {axis}, not "
+                             "a multiple of 16 bytes (the tensor-core "
+                             "kernel reads it in 16-byte units)")
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -55,9 +93,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     On CUDA the result is a view of a (B, Sq, KV, G, hd) buffer, the model
     layout, so that ``ops.mha_forward``'s transpose back costs no copy.
     ``bq`` and ``bkv`` are the TPU kernel's tile sizes, which do not change
-    the answer; they are accepted and ignored (the CUDA kernel tiles by 64
-    query rows and 64 keys, and bounds-checks the ragged tails instead of
-    padding)."""
+    the answer; they are accepted and ignored (the CUDA kernels tile by
+    their own sizes and do not pad the ragged tails).  The tensor-core
+    kernel raises ``ValueError`` on operands :func:`check_tma` refuses."""
     del bq, bkv
     _check(q, k, v, causal)
     ref._check_window(window)
@@ -79,6 +117,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} with strides "
                              f"{t.stride()} has a strided last axis")
+        if kernel_path(q.dtype, hd) == "tensor-core":
+            check_tma(name, t.data_ptr(), t.shape, t.stride(),
+                      t.element_size())
     out = torch.empty((B, Sq, KV, G, hd), dtype=q.dtype,
                       device=dev).permute(0, 2, 3, 1, 4)
     if out.numel() == 0:

@@ -8,7 +8,10 @@ ragged tails, windows under a tile).  Tolerances: float32 within 2e-5
 (rtol = atol, sums in another order); bfloat16 within one bfloat16 step of
 each element plus half a step of the largest (both sides sum in float32 and
 round once).  The port's CPU ``blockwise_attention`` computes the same
-function and is held to the plain version."""
+function and is held to the plain version.  On the card, bfloat16 at head
+dims 64, 128 and 256 runs on the tensor cores with p rounded to bfloat16
+for the value product; ``tensor_core_emulation`` rehearses that arithmetic
+here against the Pallas kernel under the same bfloat16 limit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro_torch import configs
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (check_tma, flash_attention,
+                                                 kernel_path)
 from repro_torch.models.attention import blockwise_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -142,3 +147,104 @@ def test_wrapper_refuses():
                         q[:, :, 0].detach())
     with pytest.raises(ValueError, match="expected q"):
         flash_attention(k, k, k)
+
+
+def tensor_core_emulation(q, k, v, *, causal=True, window=None,
+                          softcap=None):
+    """The arithmetic of ``csrc/flash_attention.cu``'s tensor-core kernel,
+    on the CPU (a test aid, not the function's plain version): CTAs of 128
+    flattened (position, head) rows, each over its own range of key tiles of
+    the kernel's size (128 keys; 64 at hd 256); S = q . k of the bfloat16
+    values in float32, then times hd^-0.5; p rounded to bfloat16 for the
+    value product only, l summing the float32 p."""
+    B, KV, G, Sq, hd = q.shape
+    Skv = k.shape[2]
+    bk = 64 if hd == 256 else 128
+    n, q_offset, scale = Sq * G, Skv - Sq, hd ** -0.5
+    rows = q.float().permute(0, 1, 3, 2, 4).reshape(B, KV, n, hd)
+    pad = (0, 0, 0, -Skv % bk)
+    kf = torch.nn.functional.pad(k.float(), pad)
+    vf = torch.nn.functional.pad(v.float(), pad)
+    out = torch.empty(B, KV, n, hd)
+    for r0 in range(0, n, 128):
+        r1 = min(r0 + 128, n)
+        qpos = torch.arange(r0, r1) // G + q_offset
+        q_lo, q_hi = int(qpos[0]), int(qpos[-1])
+        ntiles = -(-Skv // bk)
+        t_hi = min(ntiles, q_hi // bk + 1) if causal else ntiles
+        t_lo = max(0, q_lo - window + 1) // bk if window else 0
+        m = torch.full((B, KV, r1 - r0), -1e30)
+        l = torch.zeros(B, KV, r1 - r0)
+        acc = torch.zeros(B, KV, r1 - r0, hd)
+        for t in range(t_lo, t_hi):
+            kpos = torch.arange(t * bk, (t + 1) * bk)
+            kt, vt = kf[:, :, t * bk:(t + 1) * bk], vf[:, :, t * bk:(t + 1) * bk]
+            s = rows[:, :, r0:r1] @ kt.transpose(-1, -2) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            mask = (kpos < Skv)[None, :]
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(torch.bfloat16).float() @ vt
+            m = m_new
+        out[:, :, r0:r1] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, KV, Sq, G, hd).permute(0, 1, 3, 2, 4).to(q.dtype)
+
+
+@pytest.mark.parametrize("qshape,skv,window,softcap", [
+    ((1, 1, 4, 384, 128), 384, None, None),    # qwen3_4b: G 4, hd 128
+    ((1, 2, 2, 256, 128), 256, 33, 50.0),      # gemma2: G 2, window, softcap
+    ((1, 1, 5, 150, 64), 200, None, None)])    # hymba_1_5b: G 5, hd 64
+def test_tensor_core_numerics(qshape, skv, window, softcap):
+    """bfloat16 p in the value product stays within the bfloat16 limit of
+    the Pallas kernel (which keeps p in float32)."""
+    (jq, tq), (jk, tk), (jv, tv) = inputs(7, qshape, skv, "bfloat16")
+    got = tensor_core_emulation(tq, tk, tv, window=window, softcap=softcap)
+    assert_close(got, j_flash(jq, jk, jv, window=window, softcap=softcap,
+                              bq=128, bkv=128, interpret=True), "bfloat16")
+
+
+def test_every_attention_config_takes_the_tensor_cores():
+    """bfloat16 at every head_dim of the port's attention configs goes to
+    the tensor-core kernel; float32, and bfloat16 at hd 16 and 32, do not."""
+    for name in configs.list_archs():
+        cfg = configs.get(name)
+        if cfg.num_heads:
+            assert kernel_path(torch.bfloat16, cfg.resolved_head_dim) == \
+                "tensor-core", name
+    assert kernel_path(torch.float32, 128) == "simt"
+    assert kernel_path(torch.bfloat16, 32) == "simt"
+
+
+def _misaligned(case):
+    flat = torch.zeros(2 * 8 * 72, dtype=torch.bfloat16)
+    if case == "row stride":     # 68 elements = 136 bytes between keys
+        return flat[:8 * 68].view(1, 1, 8, 68)[..., :64]
+    return flat[1:1 + 8 * 64].view(1, 1, 8, 64)    # base 2 bytes off
+
+
+@pytest.mark.parametrize("name", ["k", "v"])
+@pytest.mark.parametrize("case,match", [
+    ("row stride", "has stride 68 .136 bytes. on axis 2"),
+    ("base offset", "starts at .*not 16-byte aligned")])
+def test_tma_check_refuses(name, case, match):
+    t = _misaligned(case)
+    with pytest.raises(ValueError, match=f"{name} {match}"):
+        check_tma(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+
+
+def test_tma_check_takes_the_model_layout():
+    """``ops.mha_forward``'s transposed views pass, and an axis of length 1
+    may have any stride."""
+    k = torch.zeros(2, 40, 3, 64, dtype=torch.bfloat16).transpose(1, 2)
+    check_tma("k", k.data_ptr(), k.shape, k.stride(), k.element_size())
+    q = torch.zeros(1, 5, 64, dtype=torch.bfloat16)[:, None]
+    q = q.as_strided((1, 1, 5, 64), (7, 3, 64, 1))
+    check_tma("q", q.data_ptr(), q.shape, q.stride(), q.element_size())

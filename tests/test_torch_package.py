@@ -152,3 +152,29 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_ptxas_summary():
+    """Phase (b)'s one line per kernel of ``nvcc -Xptxas -v``: registers,
+    spills and stack of each, and ptxas's notes on serialized wgmma."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    out = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Z6kernelPf' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z6kernelPf",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register "
+        "resources for the function '_Z6kernelPf'"])
+    rows = chip_smoke.ptxas_summary(out)
+    assert len(rows) == 2
+    assert rows[0].split(" | ")[0] in ("kernel", "_Z6kernelPf")
+    assert "4 bytes spill stores" in rows[0]
+    assert rows[0].endswith("Used 168 registers, used 16 barriers")
+    assert "serialized" in rows[1]
