@@ -18,11 +18,15 @@ Phases, each of which raises on failure (exit code 1):
       float32 and 2^-7 |want| + 2^-8 max |want| in bfloat16 (one bfloat16
       step of the element, half a step of the largest), the shortcut and
       paged decode attention at qwen3_4b's and gemma2_27b's KV widths
-      (softcap 50, window 4096 over an 8192 context) and at G = 3, hd 64:
-      contexts off the tile, 0 and S_cap, a -1 table entry and an all -1
-      row, strided (as ``ops.decode_*`` pass them) and contiguous inputs;
-      at each shape the plain versions of wrong kernels (the last token
-      dropped, a 64-token chunk skipped, the window edge moved by one) are
+      (softcap 50, window 4096 over an 8192 context, on both routes), at
+      G = 3, hd 64 and at the split kernel's edges (contexts of SPLIT - 1,
+      SPLIT, SPLIT + 1 and S_cap): contexts off the tile, 0 and S_cap, a -1
+      table entry and an all -1 row, strided (as ``ops.decode_*`` pass
+      them) and contiguous inputs, the self row (the current token's K/V)
+      folded in, and the shortcut route bitwise equal to the paged route
+      over the same rows in shuffled blocks; at each shape the plain
+      versions of wrong kernels (the last token dropped, a 64-token chunk
+      skipped, the window edge moved by one, the self row left out) are
       shown to go past that limit; the flash kernel in float32 and bfloat16
       at tests/test_kernels.py's shapes (causal sweep, windows 16, 33 and
       100, softcap 20, q shorter than the keys, ragged tails) and head_dim
@@ -61,8 +65,8 @@ Phases, each of which raises on failure (exit code 1):
       1), check the composed view against ``gather_context``, then 64
       decode steps: append, 36 layers through ``ops.decode_paged``
       (out of sync), ``pump()``, 36 layers through ``ops.decode_shortcut``
-      on the installed view, the routes held to each other and to the plain
-      version; part-way a release (both kernels decode it to zeros, the
+      on the installed view, the routes equal bit for bit and held to the
+      plain version; part-way a release (both kernels decode it to zeros, the
       gate goes paged) and a re-prefill (the create replay brings it back);
       ``get_context`` on both routes against per-sequence gathers; an async
       phase (2 shards, 8 sequences of 1024 tokens) with decodes racing the
@@ -70,8 +74,11 @@ Phases, each of which raises on failure (exit code 1):
       per decode step per route, append and replay + publish ms per step,
       create replay ms per sequence, peak memory, the kernels' |err| over
       the bfloat16 limit beside the wrong kernels' at the path's shapes, and
-      both kernels' rows (with the time of ``scaled_dot_product_attention``
-      on the same view as the shortcut kernel's yardstick);
+      both kernels' rows (device time: a sleep queued ahead of the timed
+      calls, so the host's time to issue them is left out; with the time of
+      ``scaled_dot_product_attention`` on the same view as the shortcut
+      kernel's yardstick), each kernel at SPLIT 256 and 512, and the split
+      kernel's and the combine's device time from a profiler trace;
   (h) the model on the card: qwen3_4b at its full width in bfloat16
       (36 layers, d 2560, 32/8 heads x 128, d_ff 9728, vocab 151936; 4.02 B
       parameters drawn from --seed on the card), a small server answering 8
@@ -79,14 +86,23 @@ Phases, each of which raises on failure (exit code 1):
       (36 flash launches per prefill), 32 greedy decode steps on the
       shortcut route (``make_serve_step``) and on the paged route
       (``make_paged_serve_step``, 16-token blocks, S_cap 2112 on both).
-      Checks: the routes' tokens identical, each route's last-step logits
-      within ``LOGIT_LIMIT`` (relative RMS) of a full forward over prompt
-      + fed tokens, a decode with the rope position off by one past it.
-      Reports prefill ms and tokens/s, decode ms per step and tokens/s per
-      route, each with the device's busy time from one ``torch.profiler``
-      trace, peak memory, and the flash row: its time at the prefill layer
-      shape against its bound (with the share of the bound), its plain
-      version and ``scaled_dot_product_attention(is_causal, enable_gqa)``.
+      Each decode layer attends through the decode kernels (the view, or
+      the pools through the block tables, the current token folded in).
+      Checks: 72 launches of the route's decode kernel per step and no
+      other kernel of the port, no context gathered, the routes' tokens
+      identical and their last-step logits equal bit for bit, each route's
+      last-step logits within ``LOGIT_LIMIT`` (relative RMS) of a full
+      forward over prompt + fed tokens, a decode with the rope position off
+      by one past it.  Reports prefill ms and tokens/s, decode ms per step
+      (host clock and CUDA events: mean, median, min and max of steps 3-32)
+      and tokens/s per route, each with the device's busy time from one
+      ``torch.profiler`` trace (the decode-attention kernels apart), peak
+      memory, the flash row: its time at the prefill layer shape against
+      its bound (with the share of the bound), its plain version and
+      ``scaled_dot_product_attention(is_causal, enable_gqa)``; and both
+      decode kernels at the decode layer shape (8 x 8 kv heads x 2064
+      tokens and the self row): device time, plain, bound, SDPA, both
+      split lengths.
 
 Each phase's wall seconds go on a line of their own.  The flat index is
 dropped before (f), the sharded one before (g) and the KV layer before (h),
@@ -183,6 +199,31 @@ class Timer:
             last = fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            last = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, last
+
+
+class DeviceTimer(Timer):
+    """A ``Timer`` whose calls are all issued before the card starts them:
+    a ``torch.cuda._sleep`` of ``sleep_cycles`` (about 10 ms) goes ahead of
+    the start event, so the events measure the device's time for ``reps``
+    back-to-back calls and not the host's time to issue them, which at
+    small kernels is the larger (the decode kernels' wrapper)."""
+
+    def __call__(self, fn, reps: int = 20, warmup: int = 2,
+                 sleep_cycles: int = 20_000_000):
+        torch = self.torch
+        last = None
+        for _ in range(warmup):
+            last = fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(reps):
             last = fn()
@@ -458,18 +499,26 @@ def phase_attention(torch, np, seed: int) -> None:
     and on contiguous inputs; contexts off the tile, 0 and S_cap; a -1
     table entry inside the context and an all -1 row; the widths of
     qwen3_4b (KV 8, G 4) and of gemma2_27b (KV 16, G 2, softcap 50.0,
-    window 4096 cutting an 8192 context), and G = 3 at hd 64."""
-    from repro_torch.kernels import ops, ref
+    window 4096 cutting an 8192 context, on both routes), G = 3 at hd 64,
+    and contexts at the split kernel's edges (SPLIT - 1, SPLIT, SPLIT + 1,
+    S_cap); at each shape the self-row fold (the current token's K/V row as
+    the last live position) against its plain version on both routes, and
+    the shortcut route bitwise equal to the paged route over the same rows
+    in shuffled blocks."""
+    from repro_torch.kernels import _decode, ops, ref
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.shortcut_attention import shortcut_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 100)
     rng = np.random.default_rng(seed + 100)
-    bs = 16
+    bs, sp = 16, _decode.SPLIT
     cases = [  # name, B, KV, G, hd, S_cap, ctx, window, softcap
         ("qwen3_4b widths", 3, 8, 4, 128, 200, [0, 77, 200], None, None),
         ("gemma2_27b widths", 2, 16, 2, 128, 8192, [8192, 5001], 4096, 50.0),
-        ("G=3, hd=64", 2, 1, 3, 64, 130, [130, 1], None, 7.0)]
+        ("G=3, hd=64", 2, 1, 3, 64, 130, [130, 1], None, 7.0),
+        ("split edges", 4, 8, 4, 128, 3 * sp + 40,
+         [sp - 1, sp, sp + 1, 3 * sp + 40], None, None)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, KV, G, hd, S, ctx, window, softcap in cases:
             def randn(*shape):
@@ -477,6 +526,7 @@ def phase_attention(torch, np, seed: int) -> None:
             H, MB = KV * G, -(-S // bs)
             q = randn(B, H, hd)
             vk, vv = randn(B, S, KV, hd), randn(B, S, KV, hd)
+            kn, vn = randn(B, KV, hd), randn(B, KV, hd)
             lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
             qk = q.reshape(B, KV, G, hd)
             want = ref.decode_attention_ref(
@@ -488,6 +538,7 @@ def phase_attention(torch, np, seed: int) -> None:
             margins = wrong_variants(
                 torch, want, qk, vk.transpose(1, 2), vv.transpose(1, 2),
                 lens, window, softcap)
+            short = got
             got = shortcut_attention(qk, vk.transpose(1, 2).contiguous(),
                                      vv.transpose(1, 2).contiguous(), lens,
                                      window=window, softcap=softcap)
@@ -495,6 +546,18 @@ def phase_attention(torch, np, seed: int) -> None:
             for b, c in enumerate(ctx):
                 if c == 0:
                     assert not got[b].any(), f"(c) {name}: ctx 0 not zeros"
+            want_self = ref.decode_attention_ref(
+                qk, vk.transpose(1, 2), vv.transpose(1, 2), lens,
+                window=window, softcap=softcap, k_new=kn,
+                v_new=vn).reshape(B, H, hd)
+            short_self = ops.decode_shortcut(q, vk, vv, lens, window=window,
+                                             softcap=softcap, k_new=kn,
+                                             v_new=vn)
+            checks.append(close(torch, short_self, want_self))
+            # a kernel that left the self row out must go past the limit
+            self_margin, _ = err_ratio(torch, want, want_self)
+            assert self_margin > 1, \
+                f"(c) {name}: the self row left out is within the limit"
             # the same contexts in a shuffled pool (cache layout), one -1
             # entry inside the context of the last sequence, and the first
             # sequence's row all -1 (zeros whatever its length)
@@ -507,29 +570,44 @@ def phase_attention(torch, np, seed: int) -> None:
             kp[pos] = vk
             vp[pos] = vv
             kp, vp = kp.reshape(-1, bs, KV, hd), vp.reshape(-1, bs, KV, hd)
-            if window is None:
-                got = ops.decode_paged(q, kp, vp, tables, lens,
-                                       softcap=softcap)
-                checks.append(close(torch, got, want))
+            got = ops.decode_paged(q, kp, vp, tables, lens, softcap=softcap,
+                                   window=window)
+            checks.append(close(torch, got, want))
+            assert torch.equal(got, short), \
+                f"(c) {name}: shortcut and paged routes differ in bits"
+            got = ops.decode_paged(q, kp, vp, tables, lens, softcap=softcap,
+                                   window=window, k_new=kn, v_new=vn)
+            checks.append(close(torch, got, want_self))
+            assert torch.equal(got, short_self), \
+                f"(c) {name}: routes differ in bits with the self row"
             tables[-1, (ctx[-1] - 1) // bs // 2] = -1
             tables[0] = -1
             want = ref.paged_attention_ref(
                 qk, kp.transpose(1, 2), vp.transpose(1, 2), tables,
-                lens, softcap=softcap).reshape(B, H, hd)
-            got = ops.decode_paged(q, kp, vp, tables, lens, softcap=softcap)
+                lens, softcap=softcap, window=window).reshape(B, H, hd)
+            got = ops.decode_paged(q, kp, vp, tables, lens, softcap=softcap,
+                                   window=window)
             checks.append(close(torch, got, want))
-            got = paged_attention(qk, kp.transpose(1, 2).contiguous(),
-                                  vp.transpose(1, 2).contiguous(), tables,
-                                  lens, softcap=softcap)
+            if window is None:
+                got = paged_attention(qk, kp.transpose(1, 2).contiguous(),
+                                      vp.transpose(1, 2).contiguous(), tables,
+                                      lens, softcap=softcap)
+            else:
+                got = pa.attend(qk, kp.transpose(1, 2).contiguous(),
+                                vp.transpose(1, 2).contiguous(), tables,
+                                lens, softcap=softcap, window=window)
             checks.append(close(torch, got.reshape(B, H, hd), want))
             assert not got[0].any(), f"(c) {name}: all -1 row not zeros"
             ratio, err = map(max, zip(*checks))
             log(f"(c) decode kernels == plain ({str(dtype)[6:]}, {name}: B "
                 f"{B}, KV {KV}, G {G}, hd {hd}, S_cap {S}, ctx {ctx}, window "
-                f"{window}, softcap {softcap}; strided and contiguous; a -1 "
-                f"entry and an all -1 row): max |err| {err:.3g}, |err| / "
-                f"limit {ratio:.3g}; wrong kernels' |err| / limit "
-                + ", ".join(f"{k} {r:.3g}" for k, r in margins.items()))
+                f"{window}, softcap {softcap}; strided and contiguous; both "
+                f"routes with the window; the self row; a -1 entry and an all "
+                f"-1 row): max |err| {err:.3g}, |err| / limit {ratio:.3g}; "
+                f"shortcut == paged bit for bit (with and without the self "
+                f"row); wrong kernels' |err| / limit "
+                + ", ".join(f"{k} {r:.3g}" for k, r in margins.items())
+                + f"; the self row left out {self_margin:.3g}")
     torch.cuda.synchronize()
 
 
@@ -1258,11 +1336,13 @@ def phase_kv(torch, np, args, timer) -> dict:
         short = decode("shortcut", q, mgr, check)
         ratio, err = map(max, zip(*(close(torch, a, b)
                                     for a, b in zip(paged, short))))
+        assert all(torch.equal(a, b) for a, b in zip(paged, short)), \
+            f"(g) step {step}: the routes differ in bits"
     del paged, short
     res["lens"] = mgr.seq_lens(ids)
     log(f"(g) {c['decode_steps']} decode steps x {L} layers on both routes: "
-        f"routes agree (last step max |err| {err:.3g}, |err| / limit "
-        f"{ratio:.3g}); plain "
+        f"routes equal bit for bit at every step and layer (last step max "
+        f"|err| {err:.3g}, |err| / limit {ratio:.3g}); plain "
         f"checks on layers 0 and {L - 1} every 8 steps; lengths now "
         f"{res['lens'].min()}..{res['lens'].max()}")
 
@@ -1415,6 +1495,7 @@ def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
     io = live * KV * hd * 2 * 2 + 2 * q.nbytes      # K, V rows; q and out
     qk = q.reshape(B, KV, G, hd)
     rows = []
+    timer = DeviceTimer(torch)      # the kernel rows: device time
     # paged, layer 0
     kp, vp = cache.k_pool[0], cache.v_pool[0]
     ms, got = timer(lambda: ops.decode_paged(q, kp, vp, tables, lens))
@@ -1446,7 +1527,81 @@ def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
                  io + 4 * B, err, lib_ms))
     out["rows"] = rows
     out["live_tokens"] = live
+    assert torch.equal(ops.decode_paged(q, kp, vp, tables, lens),
+                       ops.decode_shortcut(q, vk, vv, lens)), \
+        "(g) layer 0: the routes differ in bits on the installed view"
+    out["device"] = {
+        "shortcut_attention": device_ms(
+            torch, lambda: ops.decode_shortcut(q, vk, vv, lens)),
+        "paged_attention": device_ms(
+            torch, lambda: ops.decode_paged(q, kp, vp, tables, lens))}
+    out["splits"] = split_times(torch, timer, qk, vk.transpose(1, 2),
+                                vv.transpose(1, 2), kp.transpose(1, 2),
+                                vp.transpose(1, 2), tables, lens)
     return out
+
+
+def split_times(torch, timer, q, k_view, v_view, k_pool, v_pool, tables,
+                lens, k_new=None, v_new=None) -> dict:
+    """The two decode kernels at ``SPLIT`` and at the other split length
+    tried (256 and 512 tokens), timed in turns (a, b, b, a) on the same
+    operands; ms per (route, split), the mean of the two turns."""
+    from repro_torch.kernels import _decode
+    S = k_view.shape[2]
+    calls = {
+        "shortcut": lambda: _decode.launch(
+            "split_timing", q, k_view, v_view, lens, None, S, None, None,
+            k_new, v_new),
+        "paged": lambda: _decode.launch(
+            "split_timing", q, k_pool, v_pool, lens, tables, k_pool.shape[2],
+            None, None, k_new, v_new)}
+    committed, out = _decode.SPLIT, {}
+    try:
+        for route, fn in calls.items():
+            for sp in (256, 512, 512, 256):
+                _decode.SPLIT = sp
+                ms, _ = timer(fn)
+                out[(route, sp)] = out.get((route, sp), 0.0) + ms / 2
+    finally:
+        _decode.SPLIT = committed
+    return out
+
+
+def device_ms(torch, fn, reps: int = 10) -> tuple:
+    """The decode kernels' device time per call of ``fn`` from one
+    ``torch.profiler`` trace of ``reps`` warm calls: (split kernel ms,
+    combine ms), or (None, None) when the trace holds no device events.
+    Unlike CUDA events around the calls, it leaves out the host's time to
+    issue them, which dominates at small shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):          # a trace now and then holds no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    if not dev:
+        return None, None
+    return tuple(sum(e.time_range.elapsed_us() for e in dev if k in e.name)
+                 / reps / 1e3 for k in DECODE_KERNELS)
+
+
+def device_line(name, split_ms, combine_ms) -> str:
+    if split_ms is None:
+        return f"{name} device time not measured (no device events)"
+    return (f"{name} device {split_ms + combine_ms:.4f} ms (split kernel "
+            f"{split_ms:.4f}, combine {combine_ms:.4f})")
+
+
+def split_line(splits) -> str:
+    return "; ".join(f"{route} split {sp}: {ms:.4f} ms"
+                     for (route, sp), ms in sorted(splits.items()))
 
 
 def report_kv(kres, smi, kernels) -> None:
@@ -1475,6 +1630,10 @@ def report_kv(kres, smi, kernels) -> None:
         + ", ".join(f"{k} {r:.3g}" for k, r in kres["limit_ratio"].items())
         + "; of wrong kernels' plain versions "
         + ", ".join(f"{k} {r:.3g}" for k, r in kres["wrong_variants"].items()))
+    log("(g) layer 0, full batch, split kernel + combine at each split "
+        "length (CUDA events, turns a b b a): " + split_line(kres["splits"])
+        + "; the routes equal bit for bit on the installed view; profiler: "
+        + "; ".join(device_line(k, *v) for k, v in kres["device"].items()))
     for name, replaces, ms, plain_ms, bytes_, max_err, lib_ms in kres["rows"]:
         kernels.append(_row(
             name, "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1482,11 +1641,16 @@ def report_kv(kres, smi, kernels) -> None:
             library_ms=lib_ms, phase="g"))
 
 
+#: names of the decode kernels' ``__global__`` functions in a trace
+DECODE_KERNELS = ("split_kernel", "combine_kernel")
+
+
 def profiled(torch, fn) -> tuple:
     """``fn()`` once under ``torch.profiler``: its result, the device's busy
     ms (the summed durations of the kernels and copies it ran, which one
-    stream runs one at a time) and their count; (result, None, 0) when the
-    trace holds no device events."""
+    stream runs one at a time), their count, and the ms of those that are
+    decode-attention kernels (``DECODE_KERNELS``); (result, None, 0, None)
+    when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1495,7 +1659,9 @@ def profiled(torch, fn) -> tuple:
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    return out, (busy if dev else None), len(dev)
+    attn = sum(e.time_range.elapsed_us() for e in dev
+               if any(k in e.name for k in DECODE_KERNELS)) / 1e3
+    return out, (busy if dev else None), len(dev), (attn if dev else None)
 
 
 def rel_rms(torch, got, want) -> float:
@@ -1516,8 +1682,9 @@ def phase_model(torch, args, timer) -> dict:
     with the rope position off by one past it), and 36 flash launches per
     prefill.  Returns what its report and the flash row need."""
     from repro_torch.configs import get
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _decode
     from repro_torch.kvcache import paged_cache as pc
+    from repro_torch.models import attention as attn
     from repro_torch.models import model as M
     from repro_torch.runtime import serve
     dev = torch.device("cuda")
@@ -1586,8 +1753,9 @@ def phase_model(torch, args, timer) -> dict:
             ctx = M.LayerCache(k=ctx_state.view_k, v=ctx_state.view_v)
             inc = ctx_state.ctx_len + 1
         else:
-            k_ctx, v_ctx = pc.gather_context(ctx_state, ids)
-            ctx = M.LayerCache(k=k_ctx, v=v_ctx)
+            ctx = M.PagedContext(k_pool=ctx_state.k_pool,
+                                 v_pool=ctx_state.v_pool,
+                                 block_tables=ctx_state.block_tables[ids])
             inc = ctx_state.seq_lens[ids] + 1
         if positions is not None:
             positions = inc - 1 + positions
@@ -1597,9 +1765,23 @@ def phase_model(torch, args, timer) -> dict:
     routes = {}
     step_fns = {"shortcut": serve.make_serve_step(cfg),
                 "paged": serve.make_paged_serve_step(cfg)}
+    # the steps must not materialize a context: count gathers while they run
+    gathers = {"n": 0}
+
+    def spy(fn):
+        def counted(*a, **k):
+            gathers["n"] += 1
+            return fn(*a, **k)
+        return counted
+    spied = [(pc, "gather_context"), (attn, "gather_paged")]
+    originals = [getattr(mod, name) for mod, name in spied]
+    for mod, name in spied:
+        setattr(mod, name, spy(getattr(mod, name)))
+    per_call = _decode.KERNELS_PER_CALL * cfg.num_layers
     for route, step in step_fns.items():
         st = state if route == "shortcut" else cache
-        tok, fed, secs = tok0, [tok0], []
+        kernel = route + "_attention"
+        tok, fed, secs, ev_ms = tok0, [tok0], [], []
         for i in range(steps):
             if i == steps - 1:
                 routes[route + "_logits"] = last_logits(route, tok, st)
@@ -1610,24 +1792,42 @@ def phase_model(torch, args, timer) -> dict:
                     return step(params, st, tok)
                 return step(params, st, tok, ids)
             torch.cuda.synchronize()
+            _build.reset_launches()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
+            ev0.record()
             if i == 1:      # one step traced (left out of the timed mean)
                 (tok, st), *res[route + "_trace"] = profiled(torch, run)
             else:
                 tok, st = run()
+            ev1.record()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
+            ev_ms.append(ev0.elapsed_time(ev1))
+            got = _build.launches()
+            assert got == {kernel: per_call}, \
+                f"(h) {route} step {i}: launches {got}, expected " \
+                f"{{{kernel!r}: {per_call}}}"
             fed.append(tok)
         assert torch.equal(
             tok, torch.argmax(routes[route + "_logits"], dim=-1).to(tok.dtype)
         ), f"(h) {route}: the step's token is not its logits' argmax"
         routes[route] = torch.stack(fed, dim=1)
         res[route + "_step_s"] = secs
+        res[route + "_step_ev"] = ev_ms
         if route == "paged":
             cache = st
         del st
+    for (mod, name), fn in zip(spied, originals):
+        setattr(mod, name, fn)
+    assert gathers["n"] == 0, \
+        f"(h) the decode steps gathered a context {gathers['n']} times"
+    res["decode_launches"] = per_call
     assert torch.equal(routes["shortcut"], routes["paged"]), \
         "(h) the routes decoded different tokens"
+    assert torch.equal(routes["shortcut_logits"], routes["paged_logits"]), \
+        "(h) the routes' last-step logits differ in bits"
     assert int(cache.seq_lens.min()) == P + steps
     res["route_logit_diff"] = float((routes["shortcut_logits"].float()
                                      - routes["paged_logits"].float())
@@ -1707,14 +1907,101 @@ def measure_flash(torch, mres, timer) -> tuple:
             ms, plain_ms, bytes_, err, lib_ms, flops)
 
 
-def traced(busy, n, wall_ms) -> str:
+def measure_decode(torch, mres, timer) -> None:
+    """The two decode kernels at (h)'s decode layer shape, on seeded
+    bfloat16 operands: 8 sequences x 8 kv heads (G 4, hd 128) of
+    prompt + steps/2 old tokens in an S_cap-2112 view and, for the paged
+    kernel, the same rows in shuffled 16-token blocks, the self row folded
+    in.  Logs each kernel's time, its plain version's, its bound and, for
+    the shortcut kernel, ``scaled_dot_product_attention`` over the view with
+    the self row written in (a copy); the routes bitwise equal; and both
+    split lengths."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    cfg, c = mres["cfg"], MODEL_CONFIG
+    B, s_cap, bs = c["batch"], c["s_cap"], c["block"]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G, MB = H // KV, s_cap // bs
+    n_old = c["prompt"] + c["steps"] // 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    q, kn, vn = randn(B, H, hd), randn(B, KV, hd), randn(B, KV, hd)
+    vk, vv = randn(B, s_cap, KV, hd), randn(B, s_cap, KV, hd)
+    lens = torch.full((B,), n_old, dtype=torch.int32, device=dev)
+    timer = DeviceTimer(torch)
+    tables = torch.randperm(B * MB, generator=gen, device=dev).reshape(
+        B, MB).to(torch.int32)
+    kp = torch.empty((B * MB, bs, KV, hd), dtype=torch.bfloat16, device=dev)
+    vp = torch.empty_like(kp)
+    kp[tables.long()] = vk.reshape(B, MB, bs, KV, hd)
+    vp[tables.long()] = vv.reshape(B, MB, bs, KV, hd)
+    qk = q.reshape(B, KV, G, hd)
+    new = dict(k_new=kn, v_new=vn)
+    ms_s, short = timer(lambda: ops.decode_shortcut(q, vk, vv, lens, **new))
+    ms_p, paged = timer(lambda: ops.decode_paged(q, kp, vp, tables, lens,
+                                                 **new))
+    assert torch.equal(short, paged), "(h) decode layer: routes differ"
+    plain_s, want = timer(lambda: ref.decode_attention_ref(
+        qk, vk.transpose(1, 2), vv.transpose(1, 2), lens, **new).reshape(
+            B, H, hd), reps=3, warmup=1)
+    plain_p, want_p = timer(lambda: ref.paged_attention_ref(
+        qk, kp.transpose(1, 2), vp.transpose(1, 2), tables, lens,
+        **new).reshape(B, H, hd), reps=3, warmup=1)
+    _, err_s = close(torch, short, want)
+    _, err_p = close(torch, paged, want_p)
+    lk, lv = vk.clone(), vv.clone()
+    lk[:, n_old], lv[:, n_old] = kn, vn
+    mask = (torch.arange(s_cap, device=dev) <= n_old)[None, None, None, :]
+    lib_ms, lib = timer(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], lk.transpose(1, 2), lv.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True))
+    lib_ratio, _ = err_ratio(torch, lib[:, :, 0], want)
+    live = B * (n_old + 1)
+    io = live * KV * hd * 2 * 2 + 2 * q.nbytes       # K, V rows; q and out
+    nblk = B * -(-n_old // bs)
+    launches = {k: mres["decode_launches"] * c["steps"]
+                for k in ("shortcut_attention", "paged_attention")}
+    log(f"(h) decode kernels at the decode layer shape (q {tuple(q.shape)}, "
+        f"{n_old} old tokens + the self row per sequence, S_cap {s_cap}, "
+        f"block {bs}; launches: the {c['steps']} decode steps): shortcut == "
+        f"paged bit for bit; scaled_dot_product_attention |err| / limit "
+        f"{lib_ratio:.3g}")
+    _row("shortcut_attention", "", "", launches, ms_s, plain_s, io + 4 * B,
+         err_s, library_ms=lib_ms, phase="h")
+    _row("paged_attention", "", "", launches, ms_p, plain_p,
+         io + 4 * nblk + 4 * B, err_p, phase="h")
+    log("(h) decode layer shape, profiler: " + "; ".join((
+        device_line("shortcut_attention", *device_ms(
+            torch, lambda: ops.decode_shortcut(q, vk, vv, lens, **new))),
+        device_line("paged_attention", *device_ms(
+            torch, lambda: ops.decode_paged(q, kp, vp, tables, lens,
+                                            **new))))))
+    log("(h) decode layer shape, split kernel + combine at each split length "
+        "(CUDA events, turns a b b a): " + split_line(split_times(
+            torch, timer, qk, vk.transpose(1, 2), vv.transpose(1, 2),
+            kp.transpose(1, 2), vp.transpose(1, 2), tables, lens, kn, vn)))
+
+
+def median(xs) -> float:
+    ys = sorted(xs)
+    n = len(ys)
+    return ys[n // 2] if n % 2 else (ys[n // 2 - 1] + ys[n // 2]) / 2
+
+
+def traced(busy, n, attn, wall_ms) -> str:
     """A trace's device time against the untraced wall time of the same
-    work (tracing itself costs seconds of host time)."""
+    work (tracing itself costs seconds of host time), with the part in the
+    decode-attention kernels."""
     if busy is None:
         return "no device events in the trace (device time not measured)"
-    return (f"device busy {busy:.4f} ms, {n} kernels and copies; "
-            f"{100 * (1 - busy / wall_ms):.1f}% idle against the untraced "
-            f"{wall_ms:.4f} ms")
+    return (f"device busy {busy:.4f} ms ({attn:.4f} ms in the decode-"
+            f"attention kernels, {busy - attn:.4f} ms in the rest), {n} "
+            f"kernels and copies; {100 * (1 - busy / wall_ms):.1f}% idle "
+            f"against the untraced {wall_ms:.4f} ms")
 
 
 def report_model(mres, smi, kernels, row) -> None:
@@ -1730,16 +2017,21 @@ def report_model(mres, smi, kernels, row) -> None:
                                               pre * 1e3))
     for route in ("shortcut", "paged"):
         secs = mres[route + "_step_s"][2:]
+        ev = mres[route + "_step_ev"][2:]
         mean = sum(secs) / len(secs)
         log(f"(h) decode, {route} route: {mean * 1e3:.4f} ms per step "
-            f"(mean of steps 3-{c['steps']}, host clock + sync; min "
-            f"{min(secs) * 1e3:.4f}, max {max(secs) * 1e3:.4f}), "
-            f"{B / mean:.1f} tokens/s; step 2 traced: "
+            f"(mean of steps 3-{c['steps']}, host clock + sync; median "
+            f"{median(secs) * 1e3:.4f}, min {min(secs) * 1e3:.4f}, max "
+            f"{max(secs) * 1e3:.4f}; CUDA events around the step: median "
+            f"{median(ev):.4f}, min {min(ev):.4f}, max {max(ev):.4f}), "
+            f"{B / mean:.1f} tokens/s; {mres['decode_launches']} "
+            f"{route}_attention launches per step, no other kernel of the "
+            f"port, no gathered context; step 2 traced: "
             + traced(*mres[route + "_trace"], mean * 1e3))
     e = mres["errors"]
     log(f"(h) tokens identical across routes ({B} x {c['steps'] + 1}); "
-        f"last-step logits: routes differ by at most "
-        f"{mres['route_logit_diff']:.3g}; relative RMS off the full forward "
+        f"last-step logits equal bit for bit (max difference "
+        f"{mres['route_logit_diff']:.3g}); relative RMS off the full forward "
         f"(logit RMS {mres['want_rms']:.4f}): shortcut {e['shortcut']:.4g}, "
         f"paged {e['paged']:.4g}, limit {LOGIT_LIMIT}; rope position off by "
         f"one {e['wrong']:.4g}")
@@ -1831,6 +2123,7 @@ def main() -> int:
 
     mres = phase_model(torch, args, timer)
     report_model(mres, smi, kernels, measure_flash(torch, mres, timer))
+    measure_decode(torch, mres, timer)
     del mres
     clock.lap("h")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")

@@ -27,9 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("eh_lookup", "ragged_copy", "eh_insert", "decode_attention",
            "flash_attention")
 # compute_90a, not plain -arch=sm_90a (whose PTX targets compute_90):
-# wgmma exists only for the "a" target
+# wgmma exists only for the "a" target.  --split-compile=0 optimizes a
+# source's kernels in parallel on every core (decode_attention.cu holds 40
+# instantiations)
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: dict = {}

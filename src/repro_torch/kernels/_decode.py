@@ -1,7 +1,9 @@
 """The launcher that ``shortcut_attention`` and ``paged_attention`` share:
 both are ``csrc/decode_attention.cu``'s ``decode_attention_launch``, which
 takes raw pointers and element strides, so transposed views are read in
-place."""
+place, and launches two ``__global__`` kernels: the split kernel (one CTA
+per ``SPLIT`` tokens of one (b, kv head)) and the combine, which merges the
+splits' f32 partials in split order and folds in the self row."""
 from __future__ import annotations
 
 import ctypes
@@ -10,11 +12,22 @@ import torch
 
 from repro_torch.kernels import _build
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P = ctypes.c_void_p
+# one packed array of the 32 integer arguments (csrc's order), then the two
+# floats and the stream: fewer ctypes conversions per call
 _SIGNATURES = {"decode_attention_launch": [
-    _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _I,
-    _I, ctypes.c_float, ctypes.c_float, _P]}
+    _P, ctypes.c_float, ctypes.c_float, _P]}
+_ARGS = ctypes.c_longlong * 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: tokens of the context per CTA of the split kernel (a multiple of the
+#: kernel's 64-token tile); chosen on the card against 512 (PERF.md), read
+#: at each call
+SPLIT = 256
+#: head dims the kernel is built for; the most splits the combine takes
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_SPLITS = 12000
+#: ``__global__`` kernels one call launches: the split kernel, the combine
+KERNELS_PER_CALL = 2
 
 
 def check_shapes(q, k, v, k_name: str) -> None:
@@ -29,55 +42,87 @@ def check_shapes(q, k, v, k_name: str) -> None:
         raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _strides(name: str, t: torch.Tensor) -> ctypes.Array:
+def _strides(name: str, t: torch.Tensor) -> tuple:
     """The first three element strides of a 4-d tensor whose rows (last
     axis, stride 1) start 16-byte aligned, as the kernel's vector loads
     need."""
     es = t.element_size()
-    if (t.stride(3) != 1 or t.data_ptr() % 16
-            or any(s * es % 16 for s in t.stride()[:3])):
+    st = t.stride()
+    if (st[3] != 1 or t.data_ptr() % 16
+            or st[0] * es % 16 or st[1] * es % 16 or st[2] * es % 16):
         raise ValueError(f"decode attention: {name} with strides "
-                         f"{t.stride()} is not row-contiguous with 16-byte "
+                         f"{st} is not row-contiguous with 16-byte "
                          "aligned rows")
-    return (ctypes.c_longlong * 3)(*t.stride()[:3])
+    return st[:3]
 
 
-def launch(kernel: str, q, k, v, lens, tables, S: int, window, softcap
-           ) -> torch.Tensor:
+def launch(kernel: str, q, k, v, lens, tables, S: int, window, softcap,
+           k_new=None, v_new=None) -> torch.Tensor:
     """Launch the shortcut (``tables is None``) or paged kernel; returns the
-    contiguous (B, KV, G, hd) output in q's dtype."""
+    contiguous (B, KV, G, hd) output in q's dtype.  ``k_new``/``v_new``
+    (B, KV, hd): the self row, folded in as the last live position (``lens``
+    then counts the old tokens only)."""
     B, KV, G, hd = q.shape
-    lanes = hd // 8
-    if hd % 8 or lanes > 32 or lanes & (lanes - 1):
-        raise ValueError(f"{kernel}: head_dim {hd} must be 8 x a power of "
-                         "two, at most 256")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{kernel}: dtype {q.dtype} not float32/bfloat16")
+    if (k_new is None) != (v_new is None):
+        raise ValueError(f"{kernel}: k_new and v_new come together")
     dev = q.device
-    lens = lens.to(device=dev, dtype=torch.int32).contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: tensors must share one CUDA device")
+    if lens.dtype != torch.int32 or lens.device != dev:
+        lens = lens.to(device=dev, dtype=torch.int32)
+    lens = lens.contiguous()
     tensors = [k, v, lens]
     if tables is not None:
-        tables = tables.to(device=dev, dtype=torch.int32)
+        if tables.dtype != torch.int32 or tables.device != dev:
+            tables = tables.to(device=dev, dtype=torch.int32)
         if tables.stride(1) != 1:
             tables = tables.contiguous()
         tensors.append(tables)
-    for t in (q, *tensors):
-        if t.device != dev or dev.type != "cuda":
+    if k_new is not None:
+        if k_new.shape != (B, KV, hd) or v_new.shape != (B, KV, hd):
+            raise ValueError(f"{kernel}: self rows {tuple(k_new.shape)}, "
+                             f"{tuple(v_new.shape)}; expected {(B, KV, hd)}")
+        if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+            k_new, v_new = k_new.to(q.dtype), v_new.to(q.dtype)
+        if k_new.stride() != v_new.stride() or k_new.stride(2) != 1:
+            k_new, v_new = k_new.contiguous(), v_new.contiguous()
+        tensors += [k_new, v_new]
+    for t in tensors:
+        if t.device != dev:
             raise ValueError(f"{kernel}: tensors must share one CUDA device")
     out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    qs, ks, vs = _strides("q", q), _strides("k", k), _strides("v", v)
+    split = SPLIT
+    MB = 0 if tables is None else tables.shape[1]
+    smax = S if tables is None else MB * S
+    nsplit = max(1, -(-smax // split))
+    if nsplit > MAX_SPLITS:
+        raise ValueError(f"{kernel}: {smax} tokens make {nsplit} splits of "
+                         f"{split} > {MAX_SPLITS}")
+    # the f32 partials in one buffer: m, l (B, KV, G, nsplit), then acc
+    # (B, KV, G, nsplit, hd)
+    part = torch.empty(B * KV * G * nsplit * (hd + 2), dtype=torch.float32,
+                       device=dev)
+    args = _ARGS(
+        int(tables is not None), _DTYPES[q.dtype],
+        q.data_ptr(), *_strides("q", q), k.data_ptr(), *_strides("k", k),
+        v.data_ptr(), *_strides("v", v), lens.data_ptr(),
+        0 if tables is None else tables.data_ptr(),
+        0 if tables is None else tables.stride(0), MB, out.data_ptr(),
+        B, KV, G, hd, S, -1 if window is None else int(window),
+        0 if k_new is None else k_new.data_ptr(),
+        0 if v_new is None else v_new.data_ptr(),
+        *(k_new.stride()[:2] if k_new is not None else (0, 0)),
+        part.data_ptr(), split, nsplit)
     lib = _build.load("decode_attention", _SIGNATURES)
     err = lib.decode_attention_launch(
-        int(tables is not None), _DTYPES[q.dtype], q.data_ptr(), qs,
-        k.data_ptr(), ks, v.data_ptr(), vs, lens.data_ptr(),
-        0 if tables is None else tables.data_ptr(),
-        0 if tables is None else tables.stride(0),
-        0 if tables is None else tables.shape[1], out.data_ptr(), B, KV, G,
-        hd, S, -1 if window is None else int(window),
-        -1.0 if softcap is None else float(softcap), hd ** -0.5,
+        args, -1.0 if softcap is None else float(softcap), hd ** -0.5,
         _build.stream(dev))
     _build.check(err, kernel)
-    _build.count_launch(kernel)
+    _build.count_launch(kernel, KERNELS_PER_CALL)
     return out

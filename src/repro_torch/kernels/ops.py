@@ -8,11 +8,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import paged_attention, shortcut_attention
 from repro_torch.kernels.eh_lookup import eh_lookup, shortcut_lookup
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ragged_copy import ragged_copy
-from repro_torch.kernels.shortcut_attention import shortcut_attention
 
 
 def mha_forward(q, k, v, *, causal: bool = True,
@@ -35,30 +34,37 @@ def mha_forward(q, k, v, *, causal: bool = True,
 
 def decode_shortcut(q, view_k, view_v, ctx_len, *,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    k_new=None, v_new=None) -> torch.Tensor:
     """Serve-layout shortcut decode.
 
-    q: (B, H, hd); view_k/v: (B, S_cap, KV, hd); ctx_len: (B,).
-    Returns (B, H, hd)."""
+    q: (B, H, hd); view_k/v: (B, S_cap, KV, hd); ctx_len: (B,).  With the
+    self row ``k_new``/``v_new`` (B, KV, hd), the current token is folded
+    in and ``ctx_len`` counts the old tokens only.  Returns (B, H, hd)."""
     B, H, hd = q.shape
     KV = view_k.shape[2]
     qk = q.reshape(B, KV, H // KV, hd)
-    o = shortcut_attention(qk, view_k.transpose(1, 2), view_v.transpose(1, 2),
-                           ctx_len, window=window, softcap=softcap)
+    o = shortcut_attention.attend(
+        qk, view_k.transpose(1, 2), view_v.transpose(1, 2), ctx_len,
+        window=window, softcap=softcap, k_new=k_new, v_new=v_new)
     return o.reshape(B, H, hd)
 
 
 def decode_paged(q, k_pool, v_pool, block_tables, seq_lens, *,
-                 softcap: Optional[float] = None) -> torch.Tensor:
+                 softcap: Optional[float] = None,
+                 window: Optional[int] = None,
+                 k_new=None, v_new=None) -> torch.Tensor:
     """Serve-layout paged decode.
 
     q: (B, H, hd); pools: (nblocks, bs, KV, hd) (cache layout);
-    block_tables: (B, MB); seq_lens: (B,).  Returns (B, H, hd)."""
+    block_tables: (B, MB); seq_lens: (B,); ``window`` and the self row as in
+    :func:`decode_shortcut`.  Returns (B, H, hd)."""
     B, H, hd = q.shape
     KV = k_pool.shape[2]
     qk = q.reshape(B, KV, H // KV, hd)
-    o = paged_attention(qk, k_pool.transpose(1, 2), v_pool.transpose(1, 2),
-                        block_tables, seq_lens, softcap=softcap)
+    o = paged_attention.attend(
+        qk, k_pool.transpose(1, 2), v_pool.transpose(1, 2), block_tables,
+        seq_lens, window=window, softcap=softcap, k_new=k_new, v_new=v_new)
     return o.reshape(B, H, hd)
 
 

@@ -123,11 +123,17 @@ def softcap_ref(x, cap):
     return cap * torch.tanh(x / cap)
 
 
-def _decode_live(q, k_ctx, v_ctx, live, softcap):
+def _decode_live(q, k_ctx, v_ctx, live, softcap, k_new=None, v_new=None):
     """Softmax attention of q (B, KV, G, hd) over the positions of k_ctx/v_ctx
-    (B, KV, S, hd) where ``live`` (B, S) holds; f32 scores with q scaled by
-    ``hd**-0.5`` first, as the kernels do; zeros where no position is live."""
+    (B, KV, S, hd) where ``live`` (B, S) holds, and over the self row
+    ``k_new``/``v_new`` (B, KV, hd) when given (always live, as one more
+    position); f32 scores with q scaled by ``hd**-0.5`` first, as the
+    kernels do; zeros where no position is live."""
     hd = q.shape[-1]
+    if k_new is not None:
+        k_ctx = torch.cat([k_ctx, k_new[:, :, None].to(k_ctx.dtype)], dim=2)
+        v_ctx = torch.cat([v_ctx, v_new[:, :, None].to(v_ctx.dtype)], dim=2)
+        live = torch.cat([live, torch.ones_like(live[:, :1])], dim=1)
     s = torch.einsum("bkgd,bksd->bkgs", q.float() * hd ** -0.5,
                      k_ctx.float())
     if softcap is not None:
@@ -147,27 +153,41 @@ def _check_window(window) -> None:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def _live(S, lens, window, has_self, device):
+    """(B, S) bool: positions ``< lens``, and with ``window`` those ``>
+    n - 1 - window``, where n counts the self row when there is one (the
+    window ends at the current token)."""
+    _check_window(window)
+    pos = torch.arange(S, device=device)[None]
+    lens = torch.as_tensor(lens, device=device).long()[:, None]
+    live = pos < lens
+    if window is not None:
+        live &= pos > lens + int(has_self) - 1 - window
+    return live
+
+
 def decode_attention_ref(q, k_ctx, v_ctx, ctx_len, *, window=None,
-                         softcap=None) -> torch.Tensor:
+                         softcap=None, k_new=None, v_new=None
+                         ) -> torch.Tensor:
     """Decode over a contiguous view.  q: (B, KV, G, hd); k_ctx/v_ctx:
     (B, KV, S, hd); ctx_len: (B,) live tokens (positions ``[0, ctx_len)``,
-    and with ``window`` only those ``> ctx_len - 1 - window``).
+    and with ``window`` only those ``> ctx_len - 1 - window``).  With the
+    self row ``k_new``/``v_new`` (B, KV, hd), the current token, which is
+    not in the view, is folded in as the last live position: ``ctx_len``
+    then counts the old tokens only, and the window counts the self row.
     Returns (B, KV, G, hd) in q's dtype."""
-    _check_window(window)
-    S = k_ctx.shape[2]
-    ctx = torch.as_tensor(ctx_len, device=q.device).long()[:, None]
-    pos = torch.arange(S, device=q.device)[None]
-    live = pos < ctx
-    if window is not None:
-        live &= pos > ctx - 1 - window
-    return _decode_live(q, k_ctx, v_ctx, live, softcap)
+    live = _live(k_ctx.shape[2], ctx_len, window, k_new is not None,
+                 q.device)
+    return _decode_live(q, k_ctx, v_ctx, live, softcap, k_new, v_new)
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
-                        softcap=None) -> torch.Tensor:
+                        softcap=None, window=None, k_new=None,
+                        v_new=None) -> torch.Tensor:
     """Decode through the block table.  q: (B, KV, G, hd); pools: (nblocks,
     KV, bs, hd); block_tables: (B, MB) int32, -1 unset (skipped); seq_lens:
-    (B,).  Gathers the context, then attends over its live positions."""
+    (B,).  Gathers the context, then attends over its live positions;
+    ``window`` and the self row as in :func:`decode_attention_ref`."""
     B, KV, _, hd = q.shape
     bs = k_pool.shape[2]
     tables = torch.as_tensor(block_tables, device=q.device).long()
@@ -177,10 +197,10 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     def ctx(pool):             # (B, MB, KV, bs, hd) -> (B, KV, S, hd)
         return pool[safe].permute(0, 2, 1, 3, 4).reshape(B, KV, MB * bs, hd)
 
-    pos = torch.arange(MB * bs, device=q.device)[None]
-    lens = torch.as_tensor(seq_lens, device=q.device).long()[:, None]
-    live = (pos < lens) & (tables >= 0).repeat_interleave(bs, dim=1)
-    return _decode_live(q, ctx(k_pool), ctx(v_pool), live, softcap)
+    live = _live(MB * bs, seq_lens, window, k_new is not None, q.device)
+    live &= (tables >= 0).repeat_interleave(bs, dim=1)
+    return _decode_live(q, ctx(k_pool), ctx(v_pool), live, softcap, k_new,
+                        v_new)
 
 
 # -- flash attention (prefill) ----------------------------------------------

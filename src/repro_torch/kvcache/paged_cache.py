@@ -103,7 +103,10 @@ def append_tokens(cache: PagedKVCache, seq_ids, new_k: torch.Tensor,
 
     A sequence that needs a block when the ring is empty gets table entry
     -1, and its row lands in the last physical block, as JAX's ``.at[-1]``
-    writes there."""
+    writes there.  A sequence already at ``max_blocks`` blocks gets JAX's
+    answer past capacity: its fresh block still leaves the ring (and leaks),
+    the table write is dropped, and the row lands in the block of the last
+    table entry, at position ``(max_blocks - 1) * block + slot``."""
     seq_ids = _ids(seq_ids, cache)
     bs = cache.block_size
     pos = cache.seq_lens[seq_ids].long()
@@ -111,9 +114,14 @@ def append_tokens(cache: PagedKVCache, seq_ids, new_k: torch.Tensor,
     slot = pos % bs
     need_new = slot == 0
     cache, fresh = _alloc_blocks(cache, need_new)
+    # JAX drops an out-of-range scatter and clamps an out-of-range gather:
+    # clamp the index, and write the entry back unchanged where it is past
+    # the table
+    in_table = block_idx < cache.max_blocks_per_seq
+    block_idx = block_idx.clamp(max=cache.max_blocks_per_seq - 1)
     tables = cache.block_tables.clone()
     tables[seq_ids, block_idx] = torch.where(
-        need_new, fresh, tables[seq_ids, block_idx])
+        need_new & in_table, fresh, tables[seq_ids, block_idx])
     phys = tables[seq_ids, block_idx].long()
     k_pool = cache.k_pool.clone()
     v_pool = cache.v_pool.clone()

@@ -6,9 +6,15 @@ hand-written flash kernel (``kernels/csrc/flash_attention.cu``); on a CPU
 tensor it is the port of the reference's triangular-blockwise loop, an
 online softmax over only the key tiles each query tile's causal (and
 window) footprint touches.  The reference calls that loop the jnp oracle of
-its Pallas ``flash_attention``; both compute the same function.  Decode
-attention, :func:`decode_attention`, is plain PyTorch on both devices, as
-the reference computes it in XLA.
+its Pallas ``flash_attention``; both compute the same function.
+
+Decode attention, :func:`context_attention`, also dispatches by device.  On
+a CUDA tensor it is the split-K decode kernel (``kernels/csrc/
+decode_attention.cu``): ``ops.decode_shortcut`` over the layer's view, or
+``ops.decode_paged`` over its pools through the block tables, with the
+current token's K/V row folded in by the kernel's combine.  On a CPU tensor
+it is :func:`decode_attention`, the reference's XLA computation in plain
+PyTorch, over the view or over the context gathered through the tables.
 
 Supports GQA/MQA, rope, qk-norm (qwen3), the attention logit softcap
 (gemma2), sliding windows and per-layer local/global switching.  The
@@ -17,7 +23,7 @@ bidirectional prefix (PaliGemma, ``prefix_len > 0``) runs on the CPU only.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,7 +113,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if prefix_len:
             raise NotImplementedError(
                 "the CUDA flash kernel has no bidirectional-prefix mask "
-                "(PaliGemma; ROADMAP queue 1 item 11)")
+                "(PaliGemma; ROADMAP queue 1 item 3)")
         return ops.mha_forward(q, k, v, causal=causal, window=window,
                                softcap=attn_softcap)
     B, Sq, H, hd = q.shape
@@ -218,3 +224,56 @@ def decode_attention(q: torch.Tensor, k_ctx: torch.Tensor,
     o = torch.einsum("bkgs,bksd->bkgd", p_ctx.to(v_dtype).float(), v_ctx)
     o = (o + p_self[..., None] * v_new[:, :, None].float()) / denom[..., None]
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+class PagedContext(NamedTuple):
+    """A decode context read through block tables, the paged route's: the
+    cache's pools (L, nblocks, bs, KV, hd) and the (B, MB) int32 tables of
+    the sequences being decoded (-1 unset).  The old tokens' count is the
+    step's ``ctx_len - 1``."""
+    k_pool: Any
+    v_pool: Any
+    block_tables: Any
+
+
+def gather_paged(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """One layer's pool (nblocks, bs, KV, hd) gathered through ``tables``
+    (B, MB) into the (B, KV, MB*bs, hd) context, -1 entries reading block 0,
+    as ``paged_cache.gather_context`` gathers every layer."""
+    x = pool[tables.clamp_min(0).long()]            # (B, MB, bs, KV, hd)
+    B, MB, bs, KV, hd = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(B, KV, MB * bs, hd)
+
+
+def context_attention(q: torch.Tensor, ctx, i: int, ctx_len: torch.Tensor,
+                      old_len: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, *,
+                      attn_softcap: Optional[float] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Layer ``i``'s one-token attention over the decode context ``ctx``:
+    a ``LayerCache``-like pair of (L, B, KV, S, hd) views (the shortcut
+    route) or a :class:`PagedContext` (the paged route).
+
+    q: (B, H, hd); ``ctx_len`` (B,) counts the current token, ``old_len``
+    (B,) int32 is ``ctx_len - 1``; k_new/v_new: (B, KV, hd), the current
+    token's projections.  On CUDA the decode kernel reads the view or the
+    pools in place and folds the current token in; on the CPU
+    :func:`decode_attention` runs over the view or the gathered context."""
+    paged = isinstance(ctx, PagedContext)
+    if q.device.type == "cuda":
+        if paged:
+            return ops.decode_paged(
+                q, ctx.k_pool[i], ctx.v_pool[i], ctx.block_tables, old_len,
+                softcap=attn_softcap, window=window, k_new=k_new,
+                v_new=v_new)
+        return ops.decode_shortcut(
+            q, ctx.k[i].transpose(1, 2), ctx.v[i].transpose(1, 2), old_len,
+            window=window, softcap=attn_softcap, k_new=k_new, v_new=v_new)
+    if paged:
+        k_ctx = gather_paged(ctx.k_pool[i], ctx.block_tables)
+        v_ctx = gather_paged(ctx.v_pool[i], ctx.block_tables)
+    else:
+        k_ctx, v_ctx = ctx.k[i], ctx.v[i]
+    return decode_attention(q, k_ctx, v_ctx, ctx_len, k_new=k_new,
+                            v_new=v_new, attn_softcap=attn_softcap,
+                            window=window)

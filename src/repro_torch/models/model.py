@@ -8,7 +8,7 @@ reference's ``lax.scan`` over layer runs (and its remat) becomes a plain
 Python loop over the same runs (:func:`layer_runs`), and its
 ``distributed.constrain`` sharding pins have no counterpart on one card.
 
-Not here yet (ROADMAP queue 1 item 11): MoE (``num_experts``), SSM
+Not here yet (ROADMAP queue 1 items 3 and 4): MoE (``num_experts``), SSM
 (``has_ssm``), the PaliGemma prefix input (``prefix_embeddings``), and
 training (``train_forward``, ``chunked_softmax_xent``); each raises
 ``NotImplementedError`` where the reference would run it.
@@ -34,7 +34,7 @@ def _require_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "queue 1 item 11: moe.py, ssm.py, the PaliGemma prefix)")
+            "queue 1 item 3: moe.py, ssm.py, the PaliGemma prefix)")
 
 
 # -- layer kinds / runs --------------------------------------------------------
@@ -141,6 +141,10 @@ class LayerCache(NamedTuple):
     ssm: Any = ()
 
 
+#: the paged route's decode context (pools and block tables)
+PagedContext = attn.PagedContext
+
+
 def _mixer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
            positions: torch.Tensor):
     """Attention on pre-normed input (full sequence); returns the new
@@ -226,17 +230,24 @@ def prefill_forward(params, cfg: ArchConfig, batch: dict):
 
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
-                ctx: LayerCache, ctx_len: torch.Tensor, *,
+                ctx, ctx_len: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None):
     """One-token decode.
 
     token:   (B,) int current input token.
-    ctx:     stacked per-layer contexts, k/v: (L, B, KV, S_ctx, hd)
-             *materialized* (old tokens live in [0, ctx_len-1)).
+    ctx:     the old tokens' context, either a :class:`LayerCache` of
+             stacked per-layer views k/v (L, B, KV, S_ctx, hd) (old tokens
+             live in [0, ctx_len-1); the shortcut route), or a
+             :class:`PagedContext` of the cache's pools and the sequences'
+             block tables (the paged route).
     ctx_len: (B,) context length INCLUDING the new token.
     positions: (B,) rope position of the new token; default ``ctx_len - 1``
              (a caller passes another only to show that a wrong one moves
              the logits).
+
+    On CUDA each layer attends through the decode kernel, which reads the
+    views or the pools in place; on the CPU through the plain
+    ``decode_attention`` (``attention.context_attention``).
 
     Returns (logits (B, V), LayerCache(k, v) of the new token's (L, B, KV,
     hd) rows).  The caller appends them into its pool (paged) or view
@@ -245,6 +256,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     dev = params["embed"].device
     token = torch.as_tensor(token, device=dev).long()
     ctx_len = torch.as_tensor(ctx_len, device=dev)
+    old_len = (ctx_len - 1).to(torch.int32)
     h = params["embed"][token][:, None]                     # (B, 1, D)
     if positions is None:
         positions = ctx_len - 1
@@ -257,9 +269,9 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
         window = cfg.sliding_window if kinds[i] == "local" else None
-        o = attn.decode_attention(
-            q[:, 0], ctx.k[i], ctx.v[i], ctx_len, k_new=k[:, 0],
-            v_new=v[:, 0], attn_softcap=cfg.attn_softcap, window=window)
+        o = attn.context_attention(
+            q[:, 0], ctx, i, ctx_len, old_len, k[:, 0], v[:, 0],
+            attn_softcap=cfg.attn_softcap, window=window)
         h = h + (o.reshape(B, -1) @ lp["attn"]["wo"])[:, None]
         h = _ffn(lp, h, cfg)
         new_k[i], new_v[i] = k[:, 0], v[:, 0]

@@ -7,7 +7,8 @@ Two decode paths, the paper's two access paths:
     per-sequence view ``(L, B, KV, S_cap, hd)``; a token's position is
     address arithmetic.
   * **paged** (:func:`make_paged_serve_step`): decode through the block
-    table; ``paged_cache.gather_context`` materializes the context first.
+    table; on CUDA the decode kernel reads the pools in place, on the CPU
+    each layer's context is gathered first.
 
 Per-shard decode states (:func:`shard_decode_state` /
 :func:`merge_decode_states`): row ``b`` belongs to shard ``b % N``, the
@@ -18,7 +19,7 @@ place** and returns the same view tensors: it consumes its input state, as
 the reference's jitted step does with donated buffers, instead of cloning
 the whole view each step.  The reference's ``decode_state_struct``,
 ``decode_state_names`` and ``decode_state_specs`` describe mesh shardings
-and wait for ROADMAP queue 1 item 12; SSM state waits for item 11.
+and wait for ROADMAP queue 1 item 5; SSM state waits for item 3.
 """
 from __future__ import annotations
 
@@ -141,9 +142,19 @@ def make_prefill_step(cfg: ArchConfig, s_cap: int,
 
 def _write_row(view: torch.Tensor, idx: torch.Tensor,
                new: torch.Tensor) -> None:
-    """view (L,B,KV,S,hd)[:, b, :, idx[b]] <- new (L,B,KV,hd), in place."""
+    """view (L,B,KV,S,hd)[:, b, :, idx[b]] <- new (L,B,KV,hd), in place.
+
+    A row whose view is full (``idx[b] >= S``) is left as it is, as the
+    reference's ``put_along_axis`` drops that write: the index is clamped
+    and the old row written back, so no index leaves the view (on the card
+    that would be a device-side assert) and nothing waits on the host."""
+    S = view.shape[3]
+    idx = idx.long()
     b = torch.arange(view.shape[1], device=view.device)
-    view[:, b, :, idx.long()] = new.to(view.dtype).transpose(0, 1)
+    safe = idx.clamp(max=S - 1)
+    fits = (idx < S)[:, None, None, None]
+    view[:, b, :, safe] = torch.where(
+        fits, new.to(view.dtype).transpose(0, 1), view[:, b, :, safe])
 
 
 # ---------------------------------------------------------------------------
@@ -176,17 +187,18 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
 def make_paged_serve_step(cfg: ArchConfig) -> Callable:
     """(params, cache: PagedKVCache, token, seq_ids) -> (next_token, cache).
 
-    The context is gathered through the block table every step, then
-    attention runs over the gathered copy; the new rows are appended with
-    ``paged_cache.append_tokens`` (copy-on-write, as everywhere in the paged
-    cache)."""
+    Attention reads the pools through the sequences' block tables (on CUDA
+    the decode kernel, in place; on the CPU a per-layer gather, which
+    ``paged_cache.gather_context`` computes for all layers at once); the new
+    rows are appended with ``paged_cache.append_tokens`` (copy-on-write, as
+    everywhere in the paged cache)."""
     M._require_supported(cfg)
 
     def serve_step(params, cache: pc.PagedKVCache, token: torch.Tensor,
                    seq_ids: torch.Tensor):
         seq_ids = torch.as_tensor(seq_ids, device=cache.device).long()
-        k_ctx, v_ctx = pc.gather_context(cache, seq_ids)
-        ctx = M.LayerCache(k=k_ctx, v=v_ctx)
+        ctx = M.PagedContext(k_pool=cache.k_pool, v_pool=cache.v_pool,
+                             block_tables=cache.block_tables[seq_ids])
         ctx_len_inc = cache.seq_lens[seq_ids] + 1
         logits, new = M.decode_step(params, cfg, token, ctx, ctx_len_inc)
         cache = pc.append_tokens(cache, seq_ids, new.k, new.v)

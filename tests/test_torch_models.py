@@ -184,6 +184,36 @@ def test_blockwise_prefix_matches_jax(prefix_len, window, softcap):
     close(got, want)
 
 
+@pytest.mark.parametrize("arch", ["qwen3_4b", "gemma2_27b"])
+def test_decode_step_paged_context_equals_gathered(arch):
+    """``decode_step`` over a ``PagedContext`` (pools and block tables, the
+    paged route; blocks handed out in shuffled order) gives bit for bit what
+    it gives over the ``LayerCache`` that ``paged_cache.gather_context``
+    materializes from the same cache: on the CPU both attend through the
+    plain ``decode_attention`` over the same gathered rows."""
+    from repro_torch.kvcache import paged_cache as pc
+    _, cfg, _, tp, toks = setup(arch)
+    _, caches = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S))
+    bs, MB = 8, S // 8 + 2
+    cache = pc.cache_create(cfg.num_layers, 2 * B * MB, bs,
+                            cfg.num_kv_heads, cfg.resolved_head_dim, B, MB,
+                            torch.float32, device="cpu")
+    perm = np.random.default_rng(3).permutation(2 * B * MB)
+    cache = cache._replace(free_ring=torch.from_numpy(perm).to(torch.int32))
+    ids = torch.arange(B)
+    cache = pc.write_prefill(cache, ids, caches.k, caches.v)
+    ctx_len = torch.full((B,), S + 1, dtype=torch.int32)
+    tok = torch.from_numpy(toks[:, S])
+    paged = M.PagedContext(k_pool=cache.k_pool, v_pool=cache.v_pool,
+                           block_tables=cache.block_tables[ids])
+    got, new = M.decode_step(tp, cfg, tok, paged, ctx_len)
+    k_ctx, v_ctx = pc.gather_context(cache, ids)
+    want, want_new = M.decode_step(tp, cfg, tok,
+                                   M.LayerCache(k=k_ctx, v=v_ctx), ctx_len)
+    assert torch.equal(got, want)
+    assert torch.equal(new.k, want_new.k) and torch.equal(new.v, want_new.v)
+
+
 @pytest.mark.parametrize("window,softcap", [(None, None), (5, 7.0)])
 def test_decode_attention_matches_jax(window, softcap):
     rng = np.random.default_rng(9)
@@ -253,5 +283,5 @@ def test_bf16_decode_logit_limit():
 @pytest.mark.parametrize("arch", ["mamba2_370m", "qwen2_moe_a2_7b",
                                   "paligemma_3b", "hymba_1_5b"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         M.init_params(get(arch).reduced(), 0, torch.float32, device="cpu")

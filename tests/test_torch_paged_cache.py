@@ -108,3 +108,27 @@ def test_numpy_round_trip():
     t = paged_cache_from_numpy(j, device="cpu")
     assert t.k_pool.dtype == torch.bfloat16
     assert_same(j, t)
+
+
+def test_append_past_capacity_matches_jax():
+    """Five appends to two sequences of at most 2 blocks of 2 tokens: the
+    fifth is past capacity.  JAX drops the table write, clamps the gather
+    to the last entry (the row overwrites position 2), still takes two
+    fresh blocks off the ring (they leak) and advances ``seq_lens``; the
+    port gives the same state bit for bit."""
+    rng = np.random.default_rng(4)
+    j = jpc.cache_create(1, 8, 2, 1, 2, 2, 2, dtype=jnp.float32)
+    t = tpc.cache_create(1, 8, 2, 1, 2, 2, 2, dtype=torch.float32,
+                         device="cpu")
+    ids = np.array([0, 1], np.int32)
+    for _ in range(5):
+        (jk, tk), (jv, tv) = (kv(rng, "float32", 1, 2, 1, 2)
+                              for _ in range(2))
+        j = jpc.append_tokens(j, jnp.asarray(ids), jk, jv)
+        t = tpc.append_tokens(t, ids, tk, tv)
+        assert_same(j, t)
+    assert int(t.free_count) == 2 and t.seq_lens.tolist() == [5, 5]
+    # the fifth row sits at (max_blocks - 1) * block + slot 0 = position 2
+    last = t.block_tables[:, 1].long()
+    np.testing.assert_array_equal(t.k_pool[0, last, 0].numpy(),
+                                  tk[0].numpy())

@@ -202,3 +202,36 @@ def test_decode_state_numpy_roundtrip():
             assert got == ()
         else:
             np.testing.assert_array_equal(got, np.asarray(want, got.dtype))
+
+
+def test_full_view_row_is_dropped_like_jax(setup):
+    """A step on a view whose second row is full (S_cap 4, ``ctx_len`` [3,
+    4]): the reference's ``put_along_axis`` drops that row's write and
+    writes the other; ``ctx_len`` advances for both.  The port's step gives
+    the same tokens, view and ``ctx_len``."""
+    cfg_j, cfg_t, jp, tp, toks = setup
+    rng = np.random.default_rng(11)
+    shape = (cfg_j.num_layers, B, cfg_j.num_kv_heads, 4,
+             cfg_j.resolved_head_dim)
+    vk, vv = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    ctx = np.array([3, 4], np.int32)
+    tok = toks[:, 0].copy()
+    jstate = jserve.DecodeState(view_k=jnp.asarray(vk),
+                                view_v=jnp.asarray(vv), ssm_conv=(),
+                                ssm_state=(), ctx_len=jnp.asarray(ctx))
+    jtok, jstate = jax.jit(jserve.make_serve_step(cfg_j))(
+        jp, jstate, jnp.asarray(tok))
+    state = serve.DecodeState(
+        view_k=torch.from_numpy(vk.copy()), view_v=torch.from_numpy(vv.copy()),
+        ssm_conv=(), ssm_state=(), ctx_len=torch.from_numpy(ctx))
+    got, state = serve.make_serve_step(cfg_t)(tp, state, torch.from_numpy(tok))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(state.ctx_len.numpy(), [4, 5])
+    np.testing.assert_array_equal(state.ctx_len.numpy(),
+                                  np.asarray(jstate.ctx_len))
+    for got_v, want_v, old in ((state.view_k, jstate.view_k, vk),
+                               (state.view_v, jstate.view_v, vv)):
+        np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got_v[:, 1].numpy(), old[:, 1])
