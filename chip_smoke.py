@@ -7,16 +7,24 @@ Phases, each of which raises on failure (exit code 1):
 
   (a) device: the card's name, and its name and power limit as
       ``nvidia-smi --query-gpu=name,power.limit`` reports them;
-  (b) build: every CUDA source of the port with ``nvcc`` (all at once);
+  (b) build: every CUDA source of the port with ``nvcc`` (all at once),
+      and each kernel's registers, spills and shared memory from ptxas;
   (c) each kernel against its plain PyTorch version on the card: bit for
       bit, the lookup (traditional and shortcut, N=1 and N=4 shards, key
       counts off the tile, absent keys), the routed lookup (four flag
       patterns, V != C), the stacked lookup (every shard of a 4-shard
       stack), the ragged copy (duplicate slots; uint32, float32 and
       bfloat16 rows) and the insert (a 20k-key trace with 8-slot buckets:
-      cascading splits and doublings); within 2e-5 (1 + |want|) in
-      float32 and 2^-7 |want| + 2^-8 max |want| in bfloat16 (one bfloat16
-      step of the element, half a step of the largest), the shortcut and
+      cascading splits and doublings; and, all eight arrays after every
+      batch against the plain host loop: 2**16 keys into an empty S=512
+      index, capacity exhausted, maximum depth reached, duplicates and
+      re-inserts inside one window, the keys 0, 0xFFFFFFFE and 0xFFFFFFFF,
+      S=4, and the largest S the block's shared memory holds); the four lookup entry points (traditional, shortcut, stacked,
+      routed) at S = 4, 8, 16 and 512 (the probe's scalar path at 4 and
+      8), on indexes whose capacity ran out, absent keys and the EMPTY
+      pattern among the probes; within 2e-5 (1 + |want|) in float32 and 2^-7 |want| + 2^-8 max |want| in
+      bfloat16 (one bfloat16 step of the element, half a step of the
+      largest), the shortcut and
       paged decode attention at qwen3_4b's and gemma2_27b's KV widths
       (softcap 50, window 4096 over an 8192 context, on both routes), at
       G = 3, hd 64 and at the split kernel's edges (contexts of SPLIT - 1,
@@ -44,10 +52,14 @@ Phases, each of which raises on failure (exit code 1):
       in 16 batches, then lookups of every key and of 2**20 absent keys,
       out of sync (traditional route) and after ``pump()`` (shortcut
       route), then an async-mapper phase (25 ms poll) with lookups racing
-      the replays; launch counts are read around this phase;
+      the replays; launch counts are read around this phase; the seconds
+      of each insert batch;
   (e) times of the flat path: insert, maintenance, ns/lookup per route (CUDA
       events), peak device memory, and per kernel its time, its plain
-      version's time and its bound at the path's shapes;
+      version's time and its bound at the path's shapes; and the card's
+      random reads as the lookups' yardstick: ``torch.take`` of as many
+      random int32 of the key pool as the probe has keys, and of the key
+      and value pools;
   (f) the sharded path at the same widths: ``ShardedShortcutEH(16, 512,
       65536, num_shards=4)`` takes the same keys; ``lookup_batched`` takes
       its all-traditional arm before ``pump()``, its all-shortcut arm
@@ -55,8 +67,8 @@ Phases, each of which raises on failure (exit code 1):
       0 and 1 only; per-shard ``lookup`` takes the stacked kernel; then an
       async phase of 2**22 keys races lookups against the copy-on-write
       publishes; launch counts are read around this phase, and then the
-      same times as (e) for it and its two kernels, and the cost of one
-      publish;
+      same times as (e) for it and its two kernels, the seconds of each
+      insert batch, and the cost of one publish;
   (g) the KV serving layer at qwen3_4b's KV widths (36 layers, 32 query
       heads over 8 KV heads, head_dim 128, bfloat16): a paged cache of 5120
       16-token blocks and a ``ShortcutKVManager`` over 16 sequences of up to
@@ -423,6 +435,131 @@ def phase_kernels(torch, np, seed: int) -> None:
         assert equal_bits(got, want), f"(c) ragged_copy {dtype} differs"
         log(f"(c) ragged_copy kernel == plain: {dtype} view "
             f"{tuple(vshape)}, {M} slots with duplicates")
+    torch.cuda.synchronize()
+    insert_traces(torch, np, seed)
+    lookup_shapes(torch, np, seed)
+
+
+def insert_traces(torch, np, seed: int) -> None:
+    """(c): the insert kernel against the plain host loop on traces that
+    reach its edges, all eight arrays bit for bit after every batch."""
+    from repro_torch.core import extendible_hashing as eh
+    from repro_torch.kernels import eh_insert as ins
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 100)
+
+    def keys_of(n, s):
+        return make_keys(n, 0, seed + s)[0]
+
+    def run(label, create, batches, check=None):
+        cu = eh.eh_create(*create, device=dev)
+        host = eh.eh_create(*create, device="cpu")
+        ms = []
+        for kb, vb in batches:
+            k = torch.from_numpy(kb.view(np.int32)).to(dev)
+            v = torch.from_numpy(vb.view(np.int32)).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cu = eh.eh_insert_many(cu, k, v)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            host = eh.eh_insert_many(host, kb, vb)
+            for f in eh.EHState._fields:
+                if not equal_bits(getattr(cu, f).cpu(), getattr(host, f)):
+                    raise AssertionError(f"(c) insert {label}: {f} differs "
+                                         f"from the host loop")
+        if check is not None:
+            assert check(host), f"(c) insert {label}: the trace missed its case"
+        log(f"(c) insert kernel == plain, {label}: {sum(k.size for k, _ in batches)}"
+            f" keys in {len(batches)} batches, S {create[1]}, global_depth "
+            f"{int(host.global_depth)}, buckets {int(host.num_buckets)}, "
+            f"dropped {int(host.dropped)}; kernel ms per batch "
+            f"{[round(x, 3) for x in ms]}")
+
+    def vals_of(n):
+        return rng.integers(0, MISS, n, dtype=np.uint32)
+
+    def split(k, n):
+        return [(k[i:i + n], vals_of(k[i:i + n].size))
+                for i in range(0, k.size, n)]
+
+    k = keys_of(1 << 16, 200)
+    run("S=512, 2^16 keys into an empty index", (16, 512, 4096),
+        [(k, vals_of(k.size))])
+    run("capacity exhausted", (16, 8, 64), split(keys_of(2000, 201), 500),
+        lambda st: int(st.dropped) > 0 and int(st.num_buckets) == 64)
+    run("max depth reached", (4, 8, 4096), split(keys_of(600, 202), 200),
+        lambda st: int(st.global_depth) == 4 and int(st.dropped) > 0
+        and int(st.num_buckets) < 4096)
+    base = keys_of(3000, 203)
+    dup = np.repeat(base[:1000], 3)[rng.permutation(3000)]
+    run("duplicates and re-inserts inside one window", (16, 16, 8192),
+        [(base, vals_of(3000)), (dup, vals_of(3000)),
+         (np.concatenate([base[::2], base[::2]]), vals_of(3000))])
+    edge = np.array([0, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+    k = keys_of(900, 204)
+    mixed = np.concatenate([k[:300], edge, k[300:600], edge, k[600:], edge])
+    run("keys 0, 0xFFFFFFFE, 0xFFFFFFFF", (12, 8, 1024),
+        [(mixed, vals_of(mixed.size)), (edge[::-1].copy(), vals_of(3))])
+    run("S=4", (16, 4, 8192), split(keys_of(5000, 205), 1000))
+    top = max(S for S in range(512, 1 << 16)
+              if ins.shared_bytes(S) <= ins.MAX_SHARED_BYTES)
+    run(f"S={top}, the largest the block's shared memory holds",
+        (8, top, 16), split(keys_of(30000, 206), 15000),
+        lambda st: int(st.num_buckets) > 2)
+
+
+def lookup_shapes(torch, np, seed: int) -> None:
+    """(c): all four lookup entry points against their plain versions at
+    S in {4, 8, 16, 512} (the probe's scalar path at 4 and 8, its vector
+    path at 16 and 512), on an index whose capacity ran out (full rows that absent keys walk whole),
+    with absent keys and the EMPTY pattern among the probes."""
+    from repro_torch.core import extendible_hashing as eh
+    from repro_torch.core import hashing
+    from repro_torch.kernels import eh_lookup as lk
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 300)
+    for S, n in ((4, 3000), (8, 5000), (16, 8000), (512, 200_000)):
+        k, _, absent = make_keys(n, 2000, seed + 300 + S)
+        v = rng.integers(0, MISS, n, dtype=np.uint32)
+        C = max(4, int(n / S * 0.8))
+        st = eh.eh_insert_many(eh.eh_create(12, S, C, device=dev),
+                               torch.from_numpy(k.view(np.int32)).to(dev),
+                               torch.from_numpy(v.view(np.int32)).to(dev))
+        assert int(st.dropped) > 0, f"(c) lookup S={S}: no row ran full"
+        probe = np.concatenate([k, absent, np.array([MISS, 0], np.uint32)])
+        pk = torch.from_numpy(probe.view(np.int32)).to(dev)
+        g = int(st.global_depth)
+        vk, vv = eh.compose_shortcut(st, 1 << g)
+        two = lambda t: torch.stack([hashing.bits(t)] * 2)  # noqa: E731
+        dirs, bks, bvs, vks, vvs = (two(st.directory), two(st.bucket_keys),
+                                    two(st.bucket_vals), two(vk), two(vv))
+        gds = torch.tensor([g, g], dtype=torch.int32, device=dev)
+        flags = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+        pk2 = torch.stack([pk, pk])
+        want_t = ref.eh_lookup_ref(pk, st.directory, st.bucket_keys,
+                                   st.bucket_vals, g)
+        want_s = ref.shortcut_lookup_ref(pk, vk, vv, g)
+        want_r = ref.routed_lookup_ref(pk2, dirs, bks, bvs, gds, vks, vvs,
+                                       gds, flags)
+        want_k = ref.stacked_shortcut_lookup_ref(pk, vks, vvs, gds, 1)
+        hits = int((hashing.bits(want_t) != -1).sum())
+        got = {
+            "traditional": lk.eh_lookup(pk, st.directory, st.bucket_keys,
+                                        st.bucket_vals, g),
+            "shortcut": lk.shortcut_lookup(pk, vk, vv, g),
+            "stacked": lk.stacked_shortcut_lookup(pk, vks, vvs, gds, 1),
+            "routed": lk.sharded_routed_lookup(pk2, dirs, bks, bvs, gds, vks,
+                                               vvs, gds, flags)}
+        for name, want in (("traditional", want_t), ("shortcut", want_s),
+                           ("stacked", want_k), ("routed", want_r)):
+            assert equal_bits(got[name], want), \
+                f"(c) {name} lookup S={S} differs"
+        path = "scalar" if S % 4 or S < 16 else "vector"
+        log(f"(c) lookup kernels == plain at S={S} (traditional, shortcut, "
+            f"stacked, routed): {probe.size} keys, {hits} hits, "
+            f"{int(st.dropped)} dropped at capacity {C}; the {path} path")
     torch.cuda.synchronize()
 
 
@@ -795,20 +932,24 @@ def phase_main(torch, np, args, timer):
 
     sc = ShortcutEH(max_global_depth=16, bucket_slots=512, capacity=65536,
                     device=dev)
-    t_insert = 0.0
+    batch_s = []
     for i in range(0, n, batch):
         if i == n - batch:
             res["last_batch_state"] = sc.state      # kernel timing input
         t0 = time.perf_counter()
         sc.insert(keys[i:i + batch], vals[i:i + batch])
         torch.cuda.synchronize()
-        t_insert += time.perf_counter() - t0
+        batch_s.append(time.perf_counter() - t0)
     st = sc.state
+    t_insert = sum(batch_s)
     res["insert_s"] = t_insert
+    res["batch_s"] = batch_s
     log(f"(d) inserted {n} keys in 16 batches: {t_insert:.3f} s; "
         f"global_depth {int(st.global_depth)}, buckets "
         f"{int(st.num_buckets)}, fan-in {sc.avg_fan_in():.3f}, dropped "
         f"{int(st.dropped)}")
+    log(f"(d) insert seconds per batch (host clock + sync): "
+        f"{[round(x, 6) for x in batch_s]}")
     assert int(st.dropped) == 0, "(d) inserts dropped"
     assert not sc.in_sync()
 
@@ -938,6 +1079,23 @@ def measure_kernels(torch, np, res, timer) -> list:
           "src/repro/kernels/eh_lookup.py:171", ms, plain_ms,
           lookup_bytes(probe, None, vk, vv, vlog2), err(got, want))
 
+    # a yardstick of the card's random reads, which a lookup needs two of
+    # (its row, then its value): torch.take of as many random int32 of the
+    # key pool as the probe has keys, and of the key and the value pool
+    nb = int(st.num_buckets)
+    pools = [hashing.bits(t)[:nb].reshape(-1) for t in (st.bucket_keys,
+                                                        st.bucket_vals)]
+    gen = torch.Generator(device=probe.device)
+    gen.manual_seed(0)
+    pos = [torch.randint(0, pools[0].numel(), (probe.numel(),),
+                         device=probe.device, generator=gen) for _ in pools]
+    one_ms, _ = timer(lambda: torch.take(pools[0], pos[0]))
+    two_ms, _ = timer(lambda: [torch.take(t, q) for t, q in zip(pools, pos)])
+    log(f"(e) random reads: torch.take of {probe.numel()} random int32 of "
+        f"the {pools[0].numel() * 4} B key pool {one_ms:.4f} ms; of the key "
+        f"and of the value pool {two_ms:.4f} ms")
+    del pools, pos
+
     # an update replay of every slot, padded with duplicates of slot 0 as
     # the replay pads its chunk
     g = int(st.global_depth)
@@ -1001,13 +1159,16 @@ def phase_sharded(torch, np, timer, data) -> dict:
 
     idx = ShardedShortcutEH(max_global_depth=16, bucket_slots=512,
                             capacity=65536, num_shards=4, device=dev)
-    t_insert = 0.0
+    batch_s = []
     for i in range(0, n, batch):
         t0 = time.perf_counter()
         idx.insert(keys[i:i + batch], vals[i:i + batch])
         torch.cuda.synchronize()
-        t_insert += time.perf_counter() - t0
+        batch_s.append(time.perf_counter() - t0)
+    t_insert = sum(batch_s)
     res["insert_s"] = t_insert
+    log(f"(f) insert seconds per batch (host clock + sync): "
+        f"{[round(x, 6) for x in batch_s]}")
     fan = [sh.avg_fan_in() for sh in idx.shards]
     res["fan_in"] = fan
     log(f"(f) inserted {n} keys into 4 shards in 16 batches: {t_insert:.3f} "

@@ -9,42 +9,87 @@
 //   TWO_LEVEL: hash -> directory[slot] -> bucket row -> probe
 //   shortcut : hash -> view row `slot`           -> probe
 //
-// Bound: memory latency.  Each key costs one or two dependent, data-dependent
-// reads before its probe, and the probe reads a 128-byte run of its row (one
-// warp, 32 positions, per step).  The design keeps one warp per key, so the
-// probe is coalesced and ends at the first step holding a hit or an EMPTY,
-// and keeps many keys in flight (8 warps per block, many blocks per SM) to
-// cover the latency; the TPU kernels instead held the shard's pages in VMEM.
-// A shard's block of a stack is a pointer offset, so no slice is copied, and
-// every per-shard scalar (depth, view log2, route flag) is read from device
-// memory by the block that needs it, so the host never syncs.
+// Bound: the card's random reads.  Each key is a chain of dependent reads
+// (key, directory entry, probe, value); the rows (hundreds of MB) do not
+// fit in L2, so the probe's chunk and the value are two random reads from
+// device memory.  The design keeps many chains in flight: a warp serves
+// 32/G keys at once, G lanes a key (common.cuh's probe_step, 16-byte
+// reads, a step of 4G slots, which at a load near 0.7 usually ends the
+// probe in one step); each group streams through its keys on its own,
+// reading its next key's directory entry one key ahead, and stores a key's
+// value while the next key is probed.  G = kGroup = 4, chosen on the card
+// over 1, 2, 4 and 8 (PERF.md, section 6).  A shard's block of a stack is a pointer offset, so
+// no slice is copied, and every per-shard scalar (depth, view log2, route
+// flag) is read from device memory by the block that needs it, so the host
+// never syncs.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGroup = 4;  // lanes a key
 
-// Resolve keys [lo, hi) of one shard, one warp per key: `keys`/`out` are the
+// Resolve keys [lo, hi) of one shard, G lanes a key: `keys`/`out` are the
 // shard's key row, `rows_k`/`rows_v` its bucket pool (TWO_LEVEL, through
 // `directory` at depth g) or its view (the slot is the row, at log2 g).
+// Group q of warp w takes keys lo + w * KPW + q + n * stride, n = 0, 1, ...
+// in turn, one probe step a loop trip: a group whose probe is over moves
+// to its next key at once, while the warp's other groups go on probing, so
+// no group waits for the warp's longest probe.  A group holds its next key
+// and that key's directory entry (read one key ahead) and the key after
+// (read two keys ahead), and stores a key's value when its next key is
+// over, so the value read overlaps that probe.
 template <bool TWO_LEVEL>
 __device__ __forceinline__ void resolve_tile(
     const uint32_t* __restrict__ keys, uint32_t* __restrict__ out, int lo,
     int hi, int g, const int32_t* __restrict__ directory,
     const uint32_t* __restrict__ rows_k, const uint32_t* __restrict__ rows_v,
     int S) {
+  constexpr int G = kGroup;
+  constexpr int KPW = 32 / G;  // keys a warp serves at once
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = lo + warp; i < hi; i += nwarps) {
-    const uint32_t key = keys[i];
+  const int stride = (blockDim.x >> 5) * KPW;
+  const bool leader = lane % G == 0;
+  auto row_of = [&](uint32_t key) -> int32_t {
     const int32_t slot = repro::dir_slot(repro::hash_dir(key), g);
-    const int32_t row = TWO_LEVEL ? directory[slot] : slot;
+    return TWO_LEVEL ? __ldg(directory + slot) : slot;
+  };
+  int i = lo + warp * KPW + lane / G;  // the group's key
+  uint32_t key = i < hi ? __ldg(keys + i) : 0u;
+  uint32_t key1 = i + stride < hi ? __ldg(keys + i + stride) : 0u;
+  uint32_t key2 = i + 2 * stride < hi ? __ldg(keys + i + 2 * stride) : 0u;
+  int32_t row = i < hi ? row_of(key) : 0;
+  int32_t row1 = i + stride < hi ? row_of(key1) : 0;
+  uint32_t start = repro::hash_bucket(key) % S;
+  int t0 = 0;        // the probe's step base
+  int pending = -1;  // key whose value read is in flight
+  uint32_t pv = 0u;
+  while (__any_sync(repro::kFullMask, i < hi)) {
+    const bool act = i < hi;
     const size_t off = static_cast<size_t>(row) * S;
-    const int p = repro::warp_find(rows_k + off, S, key,
-                                   repro::hash_bucket(key) % S, lane);
-    if (lane == 0) out[i] = p >= 0 ? rows_v[off + p] : repro::kMiss;
+    int p;
+    uint32_t at;
+    const bool over = repro::probe_step<G, true>(rows_k + off, S, key, start,
+                                                 t0, act, &p, &at);
+    if (act && over) {
+      if (pending >= 0 && leader) out[pending] = pv;
+      pv = leader && p >= 0 && at == key ? __ldg(rows_v + off + p)
+                                         : repro::kMiss;
+      pending = i;
+      i += stride;
+      key = key1;
+      row = row1;
+      key1 = key2;
+      row1 = i + stride < hi ? row_of(key1) : 0;
+      key2 = i + 2 * stride < hi ? __ldg(keys + i + 2 * stride) : 0u;
+      start = repro::hash_bucket(key) % S;
+      t0 = 0;
+    } else {
+      t0 += G;
+    }
   }
+  if (pending >= 0 && leader) out[pending] = pv;
 }
 
 // grid (key tiles, N): every shard in one mode.

@@ -17,8 +17,22 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"eh_insert_launch": [_P, _P, _I] + [_P] * 8
                                    + [_I, _I, _I, _P]}
-#: shared memory a block may use on Hopper; the kernel stages six rows
+#: shared memory a block may use on Hopper
 MAX_SHARED_BYTES = 232448
+#: keys the kernel's lookahead resolves ahead of the commit (``kWindow`` in
+#: ``csrc/eh_insert.cu``; chosen on the card, PERF.md section 6)
+WINDOW = 124
+_RECORD_BYTES = 32
+#: the kernel's static shared memory (``sizeof(Shared)`` in the source)
+_STATIC_BYTES = 64
+
+
+def shared_bytes(S: int) -> int:
+    """Shared memory of the kernel's block (``smem_bytes`` in the source and
+    the static ``Shared``): six staged rows and the candidate slots of a
+    split, two record buffers of ``WINDOW`` keys."""
+    return ((26 * S + 15) // 16 * 16 + 2 * WINDOW * _RECORD_BYTES
+            + _STATIC_BYTES)
 
 
 def eh_insert_(st, keys: torch.Tensor, values: torch.Tensor) -> None:
@@ -26,7 +40,6 @@ def eh_insert_(st, keys: torch.Tensor, values: torch.Tensor) -> None:
     the CUDA ``EHState`` ``st`` in place, in order."""
     arrays = (st.directory, st.bucket_keys, st.bucket_vals, st.counts,
               st.local_depth, st.global_depth, st.num_buckets, st.dropped)
-    dev = _build.require_cuda("eh_insert", keys, values, *arrays)
     if keys.dtype not in (torch.uint32, torch.int32) or \
             values.dtype not in (torch.uint32, torch.int32):
         raise TypeError("keys and values must be uint32 bit patterns")
@@ -34,9 +47,10 @@ def eh_insert_(st, keys: torch.Tensor, values: torch.Tensor) -> None:
         raise ValueError(f"keys {tuple(keys.shape)} vs values "
                          f"{tuple(values.shape)}")
     C, S = st.bucket_keys.shape
-    if 24 * S > MAX_SHARED_BYTES:
-        raise ValueError(f"bucket_slots={S} needs {24 * S} bytes of shared "
-                         f"memory, more than {MAX_SHARED_BYTES}")
+    if shared_bytes(S) > MAX_SHARED_BYTES:
+        raise ValueError(f"bucket_slots={S} needs {shared_bytes(S)} bytes of "
+                         f"shared memory, more than {MAX_SHARED_BYTES}")
+    dev = _build.require_cuda("eh_insert", keys, values, *arrays)
     if keys.numel() == 0:
         return
     lib = _build.load("eh_insert", _SIGNATURES)

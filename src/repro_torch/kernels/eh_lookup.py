@@ -18,7 +18,8 @@ one ``pallas_call``.
     per shard, the directory path or the view path, in one launch.
 
 The three kernels share one per-tile body (``resolve_tile`` in the source,
-after the TPU module's ``_resolve_tile``).  On a CUDA tensor every wrapper
+after the TPU module's ``_resolve_tile``): four lanes a key, several
+keys in flight per warp.  On a CUDA tensor every wrapper
 launches its kernel; on a CPU tensor it runs the plain version
 (``ref.py``).
 """
