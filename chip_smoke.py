@@ -19,7 +19,15 @@ Phases, each of which raises on failure (exit code 1):
       batch against the plain host loop: 2**16 keys into an empty S=512
       index, capacity exhausted, maximum depth reached, duplicates and
       re-inserts inside one window, the keys 0, 0xFFFFFFFE and 0xFFFFFFFF,
-      S=4, and the largest S the block's shared memory holds); the four lookup entry points (traditional, shortcut, stacked,
+      S=4, and the largest S the block's shared memory holds); the three
+      baseline inserts (HT, HTI, CH) against their plain host loops, every
+      state array after every batch: HT doubled from 2^4 to its maximum
+      2^10 and then dropping, a doubling that loses entries (a fabricated
+      state), HTI at migrate_batch 16 with migrations over several batches,
+      re-inserts of keys still in the old table and a drain, CH with 16
+      chains until its capacity runs out, duplicate keys (inside one window
+      too), the keys 0, 0xFFFFFFFE and 0xFFFFFFFF, and 2^16 keys into each
+      table; the four lookup entry points (traditional, shortcut, stacked,
       routed) at S = 4, 8, 16 and 512 (the probe's scalar path at 4 and
       8), on indexes whose capacity ran out, absent keys and the EMPTY
       pattern among the probes; within 2e-5 (1 + |want|) in float32 and 2^-7 |want| + 2^-8 max |want| in
@@ -114,12 +122,25 @@ Phases, each of which raises on failure (exit code 1):
       ``scaled_dot_product_attention(is_causal, enable_gqa)``; and both
       decode kernels at the decode layer shape (8 x 8 kv heads x 2064
       tokens and the self row): device time, plain, bound, SDPA, both
-      split lengths.
+      split lengths;
+  (i) Fig. 7 on the card: HT, HTI and CH (``core/baselines.py``) take
+      (d)'s 2**log2_keys keys in 16 batches at ``bench_fig7.py``'s settings
+      (HT and HTI from 2^9 to 2^ceil(log2(n / 0.30)), CH with 2^(that - 4)
+      chains of 16-slot buckets) but CH's capacity, 2^23 buckets (1 GiB),
+      where the bench's n // 8 drops keys; CH must drop none.  Reports the
+      insert seconds per batch (7a's resize staircases), the insert call's
+      time on the last and the largest batch, ns/lookup of (d)'s probes
+      (plain PyTorch lookups: every key not lost returns its value, every
+      absent key MISS, and 2^16 sampled lookups equal those on a CPU copy),
+      peak memory per table, each insert kernel's time on the last batch
+      against its plain loop on the same state; and Fig. 7's five rows, EH
+      and Shortcut-EH from (d) and (e).
 
 Each phase's wall seconds go on a line of their own.  The flat index is
-dropped before (f), the sharded one before (g) and the KV layer before (h),
-so each path reports its own peak memory.  The last three lines of standard
-output are the ``{"kernels": [...]}`` JSON (nine kernels), the
+dropped before (f), the sharded one before (g), the KV layer before (h)
+and each table of (i) before the next, so each path reports its own peak
+memory.  The last three lines of standard output are the ``{"kernels":
+[...]}`` JSON (twelve kernels), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 ``src/repro_torch`` beside it, it exits non-zero and prints no result.
 """
@@ -437,6 +458,7 @@ def phase_kernels(torch, np, seed: int) -> None:
             f"{tuple(vshape)}, {M} slots with duplicates")
     torch.cuda.synchronize()
     insert_traces(torch, np, seed)
+    baseline_traces(torch, np, seed)
     lookup_shapes(torch, np, seed)
 
 
@@ -507,6 +529,117 @@ def insert_traces(torch, np, seed: int) -> None:
     run(f"S={top}, the largest the block's shared memory holds",
         (8, top, 16), split(keys_of(30000, 206), 15000),
         lambda st: int(st.num_buckets) > 2)
+
+
+def same_home_keys(np, rng, n: int, log2: int, home: int):
+    """Distinct keys whose home slot in a table of ``2**log2`` is ``home``
+    (the hash inverted: ``key = h * C1**-1 mod 2**32``)."""
+    inv = pow(2654435761, -1, 2**32)
+    low = rng.choice(1 << (32 - log2), n, replace=False).astype(np.uint64)
+    h = (np.uint64(home) << np.uint64(32 - log2)) | low
+    return ((h * np.uint64(inv)) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def baseline_traces(torch, np, seed: int) -> None:
+    """(c): the three baseline insert kernels against their plain host
+    loops on traces that reach their edges, every state array bit for bit
+    after every batch."""
+    from repro_torch import convert
+    from repro_torch.core import baselines as bl
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 300)
+    edge = np.array([0, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+
+    def keys_of(n, s):
+        return make_keys(n, 0, seed + s)[0]
+
+    def vals_of(n):
+        return rng.integers(0, MISS, n, dtype=np.uint32)
+
+    def split(k, n, **kw):
+        return [(k[i:i + n], vals_of(k[i:i + n].size), kw)
+                for i in range(0, k.size, n)]
+
+    def run(label, create, insert, batches, check=None):
+        cu, host = create(dev), create("cpu")
+        seen, ms = [], []
+        for kb, vb, kw in batches:
+            k = torch.from_numpy(kb.view(np.int32)).to(dev)
+            v = torch.from_numpy(vb.view(np.int32)).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cu = insert(cu, k, v, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            host = insert(host, kb, vb, **kw)
+            for f in type(cu)._fields:
+                if not equal_bits(getattr(cu, f).cpu(), getattr(host, f)):
+                    raise AssertionError(f"(c) {label}: {f} differs from the "
+                                         f"host loop")
+            seen.append(host)
+        if check is not None:
+            assert check(seen), f"(c) {label}: the trace missed its case"
+        scalars = {f: getattr(host, f).item() for f in type(host)._fields
+                   if getattr(host, f).dim() == 0}
+        log(f"(c) {label}: kernel == plain, {len(type(host)._fields)} "
+            f"arrays x {len(batches)} batches "
+            f"({sum(b[0].size for b in batches)} keys); {scalars}; kernel "
+            f"ms per batch {[round(x, 3) for x in ms]}")
+
+    # HT: doublings from 2^4 to its maximum 2^10, then full windows drop;
+    # re-inserts and duplicates inside one window; the edge keys
+    k = keys_of(2500, 301)
+    dup = np.repeat(k[:200], 2)[rng.permutation(400)]
+    k = np.concatenate([k[:900], edge, dup, k[900:], edge, k[:300], edge])
+    run("ht_insert, 2^4 doubled to 2^10, then drops",
+        lambda d: bl.ht_create(10, 4, device=d), bl.ht_insert_many,
+        split(k, 400), lambda s: int(s[-1].size_log2) == 10
+        and int(s[-1].dropped) > 0)
+    # a doubling that meets a full window (a fabricated state: 40 keys of
+    # one home in the doubled table) loses entries without a count
+    lossy = np.full(1 << 10, MISS, np.uint32), np.zeros(1 << 10, np.uint32)
+    lossy[0][3:43] = same_home_keys(np, rng, 40, 7, 5)
+    lossy[1][3:43] = np.arange(1, 41, dtype=np.uint32)
+    arrays = (*lossy, np.int32(6), np.int32(22), np.int32(0))
+    run("ht_insert, a doubling that loses 8 entries",
+        lambda d: convert.ht_state_from_numpy(arrays, device=d),
+        bl.ht_insert_many, split(keys_of(10, 302), 10),
+        lambda s: int(np.isin(lossy[0][3:43],
+                              s[-1].keys.numpy()).sum()) == 32)
+    k = keys_of(1 << 16, 303)
+    run("ht_insert, 2^16 keys from 2^9",
+        lambda d: bl.ht_create(20, 9, device=d), bl.ht_insert_many,
+        split(k, 1 << 14))
+
+    # HTI: migrate_batch 16, migrations over several batches, re-inserts of
+    # keys still in the old table, then one insert of batch 2^14 drains it
+    k = keys_of(3000, 304)
+    k = np.concatenate([k[:1200], edge, k[300:700], k[1200:2100], edge,
+                        k[1500:1800], k[2100:], edge])
+    run("hti_insert, migrate_batch 16, stale re-inserts, drained",
+        lambda d: bl.hti_create(14, 4, device=d), bl.hti_insert_many,
+        split(k, 100, migrate_batch=16)
+        + [(k[:1], vals_of(1), dict(migrate_batch=1 << 14))],
+        lambda s: sum(bool(x.migrating) for x in s) >= 3
+        and not bool(s[-1].migrating))
+    k = keys_of(1 << 16, 305)
+    run("hti_insert, 2^16 keys from 2^9",
+        lambda d: bl.hti_create(20, 9, device=d), bl.hti_insert_many,
+        split(k, 1 << 14))
+
+    # CH: table_log2 4 (chains of several buckets) until capacity, then
+    # dropped; duplicate appends; the edge keys
+    k = keys_of(6000, 306)
+    k = np.concatenate([k[:2000], edge, k[:500], np.repeat(k[2000:2300], 2),
+                        k[2300:], edge])
+    run("ch_insert, 16 chains until capacity, duplicates",
+        lambda d: bl.ch_create(4, 600, 8, device=d), bl.ch_insert_many,
+        split(k, 1500), lambda s: int(s[-1].dropped) > 0
+        and int(s[-1].num_buckets) == 600)
+    k = keys_of(1 << 16, 307)
+    run("ch_insert, 2^16 keys, 2^12 chains",
+        lambda d: bl.ch_create(12, 8192, 16, device=d), bl.ch_insert_many,
+        split(k, 1 << 14))
 
 
 def lookup_shapes(torch, np, seed: int) -> None:
@@ -2204,6 +2337,224 @@ def report_model(mres, smi, kernels, row) -> None:
                         library_ms=lib_ms, phase="h", flops=flops))
 
 
+# (i): Fig. 7's baselines (benchmarks/bench_fig7.py's settings at (d)'s
+# keys): the open tables grow from 2^9 to 2^ceil(log2(n / 0.30)); CH has
+# 2^(that - 4) chains of 16-slot (128-byte) buckets and 2^23 buckets (1 GiB,
+# the paper's 1 GB CH table) where the bench's n // 8 drops keys
+FIG7_INITIAL_LOG2 = 9
+FIG7_CH_SLOTS = 16
+FIG7_CH_CAPACITY = 1 << 23
+FIG7_SOURCES = {
+    "ht_insert": "src/repro/core/baselines.py:113",
+    "hti_insert": "src/repro/core/baselines.py:219",
+    "ch_insert": "src/repro/core/baselines.py:323"}
+
+
+def open_probed(torch, table_keys, log2: int, q) -> int:
+    """Slots the probes of keys ``q`` (int32 bits) read in an open table of
+    ``2**log2`` slots: up to the key's slot, or the whole window."""
+    from repro_torch.core import hashing
+    pos = hashing.window_positions(hashing.hash_dir(q), log2, 32)
+    found, j = hashing.probe_hit(hashing.bits(table_keys)[pos], q)
+    return int(torch.where(found, j + 1, 32).sum())
+
+
+def baseline_bytes(torch, name, before, after, keys) -> int:
+    """Bytes the batch insert of ``keys`` must move to turn ``before`` into
+    ``after``.  Per key: its key and value read, and for the open tables
+    the slots its probe reads (from ``after``: with no deletes, the slots
+    before a key's own were taken when it was placed) and its 8-byte slot
+    write; for CH the head and the tail's count read, the slot written and
+    the count written.  HT's doubling: the old table read and the doubled
+    one written; HTI's migration: the old slots scanned, each moved entry's
+    slot written and its old key cleared, a migration start's copy and
+    clear; CH's new bucket: its link and count."""
+    n = keys.numel()
+    if name == "ch_insert":
+        new = int(after.num_buckets) - int(before.num_buckets)
+        return 28 * n + 8 * new
+    if name == "ht_insert":
+        L0, L1 = int(before.size_log2), int(after.size_log2)
+        grow = sum(8 * (1 << L) + 16 * (1 << L) for L in range(L0, L1))
+        return 16 * n + 4 * open_probed(torch, after.keys, L1, keys) + grow
+    L1 = int(after.new_log2)
+    moved = 0
+    if int(after.old_log2) == int(before.old_log2):
+        scanned = int(after.migrate_ptr) - int(before.migrate_ptr)
+        moved = 8 * scanned + 12 * (int(before.old_count)
+                                    - int(after.old_count))
+    else:
+        moved = 16 * (1 << int(after.old_log2))
+    return 16 * n + 4 * open_probed(torch, after.new_keys, L1, keys) + moved
+
+
+def state_err(torch, a, b) -> int:
+    """Largest difference of two states' arrays (bit views as int64)."""
+    from repro_torch.core import hashing
+
+    def as64(t):
+        return hashing.storage_view(t.cpu()).to(torch.int64)
+
+    return max(int((as64(x) - as64(y)).abs().max()) if x.numel() else 0
+               for x, y in zip(a, b))
+
+
+def phase_fig7(torch, np, args, timer, smi) -> tuple:
+    """(i): HT, HTI and CH take (d)'s keys in 16 batches through the
+    users' entry points; returns the per-table results and the three
+    kernel rows (launches from this phase)."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import hashing
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import baselines_insert as kern
+    dev = torch.device("cuda")
+    n = 1 << args.log2_keys
+    n_absent = 1 << 20
+    keys_np, vals_np, absent_np = make_keys(n, n_absent, args.seed)
+    keys = torch.from_numpy(keys_np.view(np.int32)).to(dev)
+    vals = torch.from_numpy(vals_np.view(np.int32)).to(dev)
+    probe = torch.cat([keys, torch.from_numpy(absent_np.view(np.int32)).to(
+        dev)])
+    max_log2 = int(np.ceil(np.log2(n / 0.30)))
+    batch = n // 16
+    tables = [
+        ("HT", "ht_insert",
+         lambda: bl.ht_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
+         bl.ht_insert_many, bl.ht_lookup_many,
+         lambda st, k, v: kern.ht_insert_(st, k, v, 0.35),
+         lambda st: int((hashing.bits(st.keys) != -1).sum())),
+        ("HTI", "hti_insert",
+         lambda: bl.hti_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
+         bl.hti_insert_many, bl.hti_lookup_many,
+         lambda st, k, v: kern.hti_insert_(st, k, v, 0.35, 64),
+         lambda st: int((hashing.bits(st.new_keys) != -1).sum()
+                        + (hashing.bits(st.old_keys) != -1).sum())),
+        ("CH", "ch_insert",
+         lambda: bl.ch_create(max_log2 - 4, FIG7_CH_CAPACITY, FIG7_CH_SLOTS,
+                              device=dev),
+         bl.ch_insert_many, bl.ch_lookup_many,
+         lambda st, k, v: kern.ch_insert_(st, k, v),
+         lambda st: int(st.counts.sum())),
+    ]
+    results, rows = {}, []
+    for name, kname, create, insert, lookup, kernel, live_of in tables:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        st = create()
+        batch_s, batch_ms = [], []
+        for i in range(0, n, batch):
+            if i == n - batch:
+                before_last = st
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            st = insert(st, keys[i:i + batch], vals[i:i + batch])
+            end.record()
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t0)
+            batch_ms.append(start.elapsed_time(end))
+        launches = _build.launches()
+        assert launches.get(kname, 0) >= 16, \
+            f"(i) {kname} launched {launches} times"
+        scalars = {f: getattr(st, f).item() for f in type(st)._fields
+                   if getattr(st, f).dim() == 0}
+        log(f"(i) {name}: inserted {n} keys in 16 batches: "
+            f"{sum(batch_s):.6f} s; {scalars}; launches {launches}")
+        log(f"(i) {name} insert seconds per batch (host clock + sync): "
+            f"{[round(x, 6) for x in batch_s]}")
+        big = int(np.argmax(batch_ms))
+        log(f"(i) {name} insert ms per batch (CUDA events around the call, "
+            f"the state copy included): last {batch_ms[-1]:.4f}, largest "
+            f"{batch_ms[big]:.4f} (batch {big + 1})")
+        if name == "CH":
+            assert int(st.dropped) == 0, "(i) CH dropped keys"
+
+        # lookups: every present key not lost returns its value, every
+        # absent key MISS, and a sample equals the lookup on a CPU copy
+        ms, got = timer(lambda: lookup(st, probe))
+        gi = got.view(torch.int32)
+        present = gi[:n]
+        miss = int((present == -1).sum())
+        wrong = int(((present != vals) & (present != -1)).sum())
+        assert wrong == 0, f"(i) {name}: {wrong} keys with a wrong value"
+        assert bool((gi[n:] == -1).all()), f"(i) {name}: absent keys found"
+        live = live_of(st)
+        assert miss == n - live, \
+            f"(i) {name}: {miss} present keys MISS, {n - live} not stored"
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        idx = torch.randint(0, probe.numel(), (1 << 16,), device=dev,
+                            generator=gen)
+        host_st = type(st)(*(a.cpu() for a in st))
+        plain = lookup(host_st, probe[idx].cpu())
+        assert equal_bits(gi[idx].cpu(), hashing.bits(plain)), \
+            f"(i) {name}: card lookups differ from the CPU's"
+        peak = torch.cuda.max_memory_allocated()
+        ns = ms * 1e6 / probe.numel()
+        log(f"(i) {name} lookup (plain PyTorch) {ns:.4f} ns/lookup "
+            f"({probe.numel()} lookups, {n_absent} absent; {ms:.4f} ms); "
+            f"present keys MISS {miss} (not stored: dropped "
+            f"{int(st.dropped)}); 2^16 sampled lookups == the CPU's; "
+            f"max_memory_allocated {peak} B; card {smi}")
+        del got, gi, present, plain, host_st
+
+        # the kernel row: the last batch again on the state before it,
+        # against the plain loop on the same inputs
+        kb, vb = keys[n - batch:], vals[n - batch:]
+        work = type(before_last)(*(hashing.clone(a) for a in before_last))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        kernel(work, kb, vb)
+        end.record()
+        end.synchronize()
+        k_ms = start.elapsed_time(end)
+        host = type(before_last)(*(a.cpu() for a in before_last))
+        t0 = time.perf_counter()
+        host = insert(host, kb.cpu(), vb.cpu())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rows.append(_row(kname,
+                         "src/repro_torch/kernels/csrc/baselines_insert.cu",
+                         FIG7_SOURCES[kname], launches, k_ms, plain_ms,
+                         baseline_bytes(torch, kname, before_last, work, kb),
+                         state_err(torch, work, host), phase="i"))
+        results[name] = dict(insert_s=sum(batch_s), batch_s=batch_s,
+                             last_ms=batch_ms[-1], big_ms=batch_ms[big],
+                             big=big + 1, ns=ns, peak=peak,
+                             dropped=int(st.dropped), miss=miss)
+        del st, before_last, work, host
+    bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
+    assert not bad, f"(i) kernels differ from their plain loops: {bad}"
+    return results, rows
+
+
+def report_fig7(res, eh, smi) -> None:
+    """(i): Fig. 7's five rows on one card: 7a insert seconds (the per-batch
+    staircase), 7b ns/lookup; EH and Shortcut-EH from (d)/(e)."""
+    log(f"(i) Fig. 7 on {smi} ({eh['n_keys']} keys in 16 batches; lookups of "
+        f"them and {eh['n_absent']} absent keys; the baselines' lookups are "
+        f"plain PyTorch, EH's and Shortcut-EH's the CUDA kernels):")
+    for name, r in res.items():
+        log(f"(i)   {name:12s} insert {r['insert_s']:.6f} s, per batch "
+            f"{[round(x, 4) for x in r['batch_s']]}; lookup "
+            f"{r['ns']:.4f} ns/lookup; peak {r['peak']} B; dropped "
+            f"{r['dropped']}")
+    log(f"(i)   {'EH':12s} insert {eh['insert_s']:.6f} s (ShortcutEH.insert: "
+        f"the EH insert and the replay queue), per batch "
+        f"{[round(x, 4) for x in eh['batch_s']]}; lookup "
+        f"{eh['trad_ns']:.4f} ns/lookup (traditional route); peak "
+        f"{eh['peak']} B (the whole of (d))")
+    log(f"(i)   {'Shortcut-EH':12s} the same inserts, then pump() "
+        f"{eh['maint_s']:.6f} s; lookup {eh['sc_ns']:.4f} ns/lookup "
+        f"(shortcut route)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2247,6 +2598,10 @@ def main() -> int:
         f"{res['n_absent']} absent); max_memory_allocated "
         f"{res['peak_bytes']} B; card {smi}")
     kernels = measure_kernels(torch, np, res, timer)
+    eh7 = dict(n_keys=res["n_keys"], n_absent=res["n_absent"],
+               insert_s=res["insert_s"], batch_s=res["batch_s"],
+               trad_ns=res["trad_ms"] * 1e6 / n, sc_ns=res["sc_ms"] * 1e6 / n,
+               maint_s=res["maint_s"], peak=res["peak_bytes"])
     res["sc"].close()
     data = {k: res[k] for k in ("keys", "vals", "probe", "want", "extra")}
     del res                      # drop the flat index: (f) has its own peak
@@ -2286,7 +2641,14 @@ def main() -> int:
     report_model(mres, smi, kernels, measure_flash(torch, mres, timer))
     measure_decode(torch, mres, timer)
     del mres
+    gc.collect()
+    torch.cuda.empty_cache()
     clock.lap("h")
+
+    fig7, rows = phase_fig7(torch, np, args, timer, smi)
+    kernels.extend(rows)
+    report_fig7(fig7, eh7, smi)
+    clock.lap("i")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

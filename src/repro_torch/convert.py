@@ -1,6 +1,6 @@
-"""numpy <-> port conversions for the index state, the composed view, the
-paged KV cache, the KV view pair, the model parameters and the serve
-decode state.
+"""numpy <-> port conversions for the index state, the baselines' states,
+the composed view, the paged KV cache, the KV view pair, the model
+parameters and the serve decode state.
 
 The JAX package's arrays cross over as numpy (``np.asarray`` of each field),
 so that a test can start both packages from the same state and compare
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import CHState, HTIState, HTState
 from repro_torch.core.extendible_hashing import EHState
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.paged_cache import PagedKVCache
@@ -45,6 +46,53 @@ def state_to_numpy(st: EHState) -> EHState:
     """The same state with numpy arrays (uint32 and int32 as in the JAX
     package) in every field."""
     return EHState(*(a.cpu().numpy() for a in st))
+
+
+def _baseline_dtype(field: str) -> np.dtype:
+    """uint32 for the tables' keys and values, bool for ``migrating``,
+    int32 for the rest."""
+    if field == "migrating":
+        return np.bool_
+    return np.uint32 if field.endswith(("keys", "vals")) else np.int32
+
+
+def _baseline_from_numpy(cls, arrays, device):
+    dev = resolve_device(device)
+    fields = dict(zip(cls._fields, arrays))
+    if len(fields) != len(cls._fields):
+        raise ValueError(f"expected {len(cls._fields)} arrays")
+    return cls(**{f: _to_tensor(a, _baseline_dtype(f), dev)
+                  for f, a in fields.items()})
+
+
+def ht_state_from_numpy(arrays, *, device=None) -> HTState:
+    """An ``HTState`` of tensors from its five arrays in field order (a JAX
+    ``HTState`` passes as it is)."""
+    return _baseline_from_numpy(HTState, arrays, device)
+
+
+def hti_state_from_numpy(arrays, *, device=None) -> HTIState:
+    """An ``HTIState`` of tensors from its eleven arrays in field order."""
+    return _baseline_from_numpy(HTIState, arrays, device)
+
+
+def ch_state_from_numpy(arrays, *, device=None) -> CHState:
+    """A ``CHState`` of tensors from its seven arrays in field order."""
+    return _baseline_from_numpy(CHState, arrays, device)
+
+
+def ht_state_to_numpy(st: HTState) -> HTState:
+    """The same state with numpy arrays (uint32, int32 as in the JAX
+    package)."""
+    return HTState(*(a.cpu().numpy() for a in st))
+
+
+def hti_state_to_numpy(st: HTIState) -> HTIState:
+    return HTIState(*(a.cpu().numpy() for a in st))
+
+
+def ch_state_to_numpy(st: CHState) -> CHState:
+    return CHState(*(a.cpu().numpy() for a in st))
 
 
 def view_from_numpy(view, *, device=None) -> tuple:

@@ -57,6 +57,17 @@ def test_imports_with_jax_and_repro_blocked():
             "for _ in range(2):\n"
             "    tok, st = step(p, st, tok)\n"
             "assert st.ctx_len.tolist() == [18, 18] and tok.shape == (2,)\n"
+            "from repro_torch.core import baselines as bl\n"
+            "keys, vals = list(range(1, 301)), list(range(300))\n"
+            "for table, look in (\n"
+            "        (bl.ht_insert_many(bl.ht_create(10, 4, device='cpu'),\n"
+            "                           keys, vals), bl.ht_lookup_many),\n"
+            "        (bl.hti_insert_many(bl.hti_create(10, 4, device='cpu'),\n"
+            "                            keys, vals, 8), bl.hti_lookup_many),\n"
+            "        (bl.ch_insert_many(bl.ch_create(3, 64, 8, device='cpu'),\n"
+            "                           keys, vals), bl.ch_lookup_many)):\n"
+            "    assert look(table, keys + [999]).tolist() == vals + "
+            "[0xFFFFFFFF]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m, v in sys.modules.items() if v)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
