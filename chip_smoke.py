@@ -1074,6 +1074,7 @@ def phase_main(torch, np, args, timer):
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
     st = sc.state
+    res["resident"] = sum(a.nbytes for a in st)
     t_insert = sum(batch_s)
     res["insert_s"] = t_insert
     res["batch_s"] = batch_s
@@ -2348,6 +2349,13 @@ FIG7_SOURCES = {
     "ht_insert": "src/repro/core/baselines.py:113",
     "hti_insert": "src/repro/core/baselines.py:219",
     "ch_insert": "src/repro/core/baselines.py:323"}
+# (i): besides the last batch, the batch each open table's kernel is held to
+# its plain loop on, one whose grid passes sweep more than the 2^20 threads
+# of grid_for's largest grid (so their grid-stride loops go round more than
+# once): HT's batch 1 doubles 13 times, 2^9 to 2^22 slots; HTI's batch 3
+# starts a migration from 2^23 slots and drains it.  CH has no grid pass.
+FIG7_CHECK = {"HT": 1, "HTI": 3}
+GRID_THREADS = 4096 * 256
 
 
 def open_probed(torch, table_keys, log2: int, q) -> int:
@@ -2417,47 +2425,85 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         dev)])
     max_log2 = int(np.ceil(np.log2(n / 0.30)))
     batch = n // 16
+
+    def live_open(*tables):
+        return int(sum((hashing.bits(t) != -1).sum() for t in tables))
+
+    # name, kernel, create, insert, lookup, the kernel alone, live entries
+    # (slots that hold a key), the entries the state's own counts say it
+    # holds, and the old slots a batch's grid passes sweep (HT: its largest
+    # doubling's; HTI: a migration it started, which it also drains here)
     tables = [
         ("HT", "ht_insert",
          lambda: bl.ht_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
          bl.ht_insert_many, bl.ht_lookup_many,
          lambda st, k, v: kern.ht_insert_(st, k, v, 0.35),
-         lambda st: int((hashing.bits(st.keys) != -1).sum())),
+         lambda st: live_open(st.keys),
+         lambda st: int(st.count),
+         lambda a, b: ((1 << (int(b.size_log2) - 1))
+                       if int(b.size_log2) > int(a.size_log2) else 0)),
         ("HTI", "hti_insert",
          lambda: bl.hti_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
          bl.hti_insert_many, bl.hti_lookup_many,
          lambda st, k, v: kern.hti_insert_(st, k, v, 0.35, 64),
-         lambda st: int((hashing.bits(st.new_keys) != -1).sum()
-                        + (hashing.bits(st.old_keys) != -1).sum())),
+         lambda st: live_open(st.new_keys, st.old_keys),
+         lambda st: int(st.new_count) + int(st.old_count),
+         lambda a, b: ((1 << int(b.old_log2))
+                       if int(b.old_log2) > int(a.old_log2) else 0)),
         ("CH", "ch_insert",
          lambda: bl.ch_create(max_log2 - 4, FIG7_CH_CAPACITY, FIG7_CH_SLOTS,
                               device=dev),
          bl.ch_insert_many, bl.ch_lookup_many,
          lambda st, k, v: kern.ch_insert_(st, k, v),
-         lambda st: int(st.counts.sum())),
+         lambda st: int(st.counts.sum()),
+         lambda st: n - int(st.dropped),
+         lambda a, b: 0),
     ]
+
+    def hold(insert, before, after, kb, vb) -> tuple:
+        """The plain loop on a CPU copy of ``before`` and the batch: the
+        largest difference from the card's ``after`` on any array, and the
+        loop's ms."""
+        host = type(before)(*(a.cpu() for a in before))
+        t0 = time.perf_counter()
+        host = insert(host, kb.cpu(), vb.cpu())
+        return state_err(torch, after, host), (time.perf_counter() - t0) * 1e3
+
     results, rows = {}, []
-    for name, kname, create, insert, lookup, kernel, live_of in tables:
+    for (name, kname, create, insert, lookup, kernel, live_of, count_of,
+         grid_work) in tables:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         st = create()
-        batch_s, batch_ms = [], []
-        for i in range(0, n, batch):
-            if i == n - batch:
-                before_last = st
+        batch_s, batch_ms, held = [], [], []
+        for b, i in enumerate(range(0, n, batch), 1):
+            prev = st
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-            st = insert(st, keys[i:i + batch], vals[i:i + batch])
+            st = insert(prev, keys[i:i + batch], vals[i:i + batch])
             end.record()
             torch.cuda.synchronize()
             batch_s.append(time.perf_counter() - t0)
             batch_ms.append(start.elapsed_time(end))
+            if b == FIG7_CHECK.get(name):
+                swept = grid_work(prev, st)
+                assert swept > GRID_THREADS, \
+                    f"(i) {name} batch {b} sweeps {swept} slots in grid passes"
+                e, h_ms = hold(insert, prev, st, keys[i:i + batch],
+                               vals[i:i + batch])
+                held.append(e)
+                log(f"(i) {name} batch {b} (grid passes over {swept} slots) "
+                    f"against the plain loop on the state before it: max "
+                    f"|err| {e} over every array ({h_ms:.1f} ms on the host)")
+            if i == n - batch:
+                before_last = prev
+            del prev
         launches = _build.launches()
         assert launches.get(kname, 0) >= 16, \
             f"(i) {kname} launched {launches} times"
@@ -2484,6 +2530,8 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         assert wrong == 0, f"(i) {name}: {wrong} keys with a wrong value"
         assert bool((gi[n:] == -1).all()), f"(i) {name}: absent keys found"
         live = live_of(st)
+        assert live == count_of(st), \
+            f"(i) {name}: {live} entries stored, its counts say {count_of(st)}"
         assert miss == n - live, \
             f"(i) {name}: {miss} present keys MISS, {n - live} not stored"
         gen = torch.Generator(device=dev)
@@ -2495,12 +2543,16 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         assert equal_bits(gi[idx].cpu(), hashing.bits(plain)), \
             f"(i) {name}: card lookups differ from the CPU's"
         peak = torch.cuda.max_memory_allocated()
+        resident = sum(a.nbytes for a in st)
         ns = ms * 1e6 / probe.numel()
         log(f"(i) {name} lookup (plain PyTorch) {ns:.4f} ns/lookup "
             f"({probe.numel()} lookups, {n_absent} absent; {ms:.4f} ms); "
             f"present keys MISS {miss} (not stored: dropped "
-            f"{int(st.dropped)}); 2^16 sampled lookups == the CPU's; "
-            f"max_memory_allocated {peak} B; card {smi}")
+            f"{int(st.dropped)}); stored entries == the state's counts; "
+            f"2^16 sampled lookups == the CPU's; state {resident} B "
+            f"resident; max_memory_allocated {peak} B over the table's run "
+            f"(the state, its copy-on-write clone, the doubling's work "
+            f"space, keys, probes, lookup chunks); card {smi}")
         del got, gi, present, plain, host_st
 
         # the kernel row: the last batch again on the state before it,
@@ -2515,20 +2567,20 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         end.record()
         end.synchronize()
         k_ms = start.elapsed_time(end)
-        host = type(before_last)(*(a.cpu() for a in before_last))
-        t0 = time.perf_counter()
-        host = insert(host, kb.cpu(), vb.cpu())
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        e, plain_ms = hold(insert, before_last, work, kb, vb)
+        log(f"(i) {name} batch 16 again (the kernel alone) against the plain "
+            f"loop: max |err| {e} over every array")
+        held.append(e)
         rows.append(_row(kname,
                          "src/repro_torch/kernels/csrc/baselines_insert.cu",
                          FIG7_SOURCES[kname], launches, k_ms, plain_ms,
                          baseline_bytes(torch, kname, before_last, work, kb),
-                         state_err(torch, work, host), phase="i"))
+                         max(held), phase="i"))
         results[name] = dict(insert_s=sum(batch_s), batch_s=batch_s,
                              last_ms=batch_ms[-1], big_ms=batch_ms[big],
-                             big=big + 1, ns=ns, peak=peak,
+                             big=big + 1, ns=ns, peak=peak, resident=resident,
                              dropped=int(st.dropped), miss=miss)
-        del st, before_last, work, host
+        del st, before_last, work
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
     assert not bad, f"(i) kernels differ from their plain loops: {bad}"
     return results, rows
@@ -2543,13 +2595,14 @@ def report_fig7(res, eh, smi) -> None:
     for name, r in res.items():
         log(f"(i)   {name:12s} insert {r['insert_s']:.6f} s, per batch "
             f"{[round(x, 4) for x in r['batch_s']]}; lookup "
-            f"{r['ns']:.4f} ns/lookup; peak {r['peak']} B; dropped "
-            f"{r['dropped']}")
+            f"{r['ns']:.4f} ns/lookup; state {r['resident']} B resident, "
+            f"peak {r['peak']} B over its run; dropped {r['dropped']}")
     log(f"(i)   {'EH':12s} insert {eh['insert_s']:.6f} s (ShortcutEH.insert: "
         f"the EH insert and the replay queue), per batch "
         f"{[round(x, 4) for x in eh['batch_s']]}; lookup "
-        f"{eh['trad_ns']:.4f} ns/lookup (traditional route); peak "
-        f"{eh['peak']} B (the whole of (d))")
+        f"{eh['trad_ns']:.4f} ns/lookup (traditional route); state "
+        f"{eh['resident']} B resident, peak {eh['peak']} B (the whole of "
+        f"(d))")
     log(f"(i)   {'Shortcut-EH':12s} the same inserts, then pump() "
         f"{eh['maint_s']:.6f} s; lookup {eh['sc_ns']:.4f} ns/lookup "
         f"(shortcut route)")
@@ -2601,7 +2654,8 @@ def main() -> int:
     eh7 = dict(n_keys=res["n_keys"], n_absent=res["n_absent"],
                insert_s=res["insert_s"], batch_s=res["batch_s"],
                trad_ns=res["trad_ms"] * 1e6 / n, sc_ns=res["sc_ms"] * 1e6 / n,
-               maint_s=res["maint_s"], peak=res["peak_bytes"])
+               maint_s=res["maint_s"], peak=res["peak_bytes"],
+               resident=res["resident"])
     res["sc"].close()
     data = {k: res[k] for k in ("keys", "vals", "probe", "want", "extra")}
     del res                      # drop the flat index: (f) has its own peak

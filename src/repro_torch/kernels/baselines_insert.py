@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -19,8 +20,8 @@ from repro_torch.kernels import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAUNCHES = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "ht_insert_launch": [_P, _P, _I] + [_P] * 5 + [_I, _F] + [_P] * 4
-                        + [_LAUNCHES, _P],
+    "ht_insert_launch": [_P, _P, _I] + [_P] * 5 + [_I, _F] + [_P] * 3
+                        + [_I, _P, _LAUNCHES, _P],
     "hti_insert_launch": [_P, _P, _I] + [_P] * 11 + [_I, _F, _I, _P,
                                                      _LAUNCHES, _P],
     "ch_insert_launch": [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P],
@@ -50,27 +51,47 @@ def _ptrs(arrays) -> list:
     return [a.data_ptr() for a in arrays]
 
 
+def _largest_doubling(size_log2: int, count: int, n: int, max_log2: int,
+                      load_threshold: float) -> int:
+    """log2 of the largest table a batch of ``n`` keys may double from
+    (-1: none): the reference's float32 load test ``f32(count) + 1 >
+    f32(threshold) * 2**L`` made on ``count + n``, more than the count any
+    key of the batch sees (``count`` never falls), so never too small."""
+    c = np.float32(count + n) + np.float32(1.0)
+    thr = np.float32(load_threshold)
+    largest = -1
+    for L in range(size_log2, max_log2):
+        if c > thr * np.float32(1 << L):
+            largest = L
+    return largest
+
+
 def ht_insert_(st, keys: torch.Tensor, values: torch.Tensor,
                load_threshold: float) -> None:
     """Insert ``keys``/``values`` ((n,) uint32 or int32 bit patterns) into
-    the CUDA ``HTState`` ``st`` in place, in order."""
+    the CUDA ``HTState`` ``st`` in place, in order.  The doubling's work
+    space (9 bytes an old slot) is allocated only for a batch that may
+    double, and only as large as the largest table it may double from."""
     _check_batch("ht_insert", keys, values)
     _check_shapes("ht_insert", (1 << st.max_size_log2,), st.keys, st.vals)
     dev = _build.require_cuda("ht_insert", keys, values, *st)
     if keys.numel() == 0:
         return
-    half = 1 << max(st.max_size_log2 - 1, 0)
-    old_k = torch.empty(half, dtype=torch.int32, device=dev)
-    old_v = torch.empty(half, dtype=torch.int32, device=dev)
-    cand = torch.empty(half, dtype=torch.uint8, device=dev)
+    size_log2, count = torch.stack([st.size_log2, st.count]).tolist()
+    work_log2 = _largest_doubling(size_log2, count, keys.numel(),
+                                  st.max_size_log2, load_threshold)
+    work = 1 << work_log2 if work_log2 >= 0 else 0
+    old_k = torch.empty(work, dtype=torch.int32, device=dev)
+    old_v = torch.empty(work, dtype=torch.int32, device=dev)
+    cand = torch.empty(work, dtype=torch.uint8, device=dev)
     status = torch.zeros(4, dtype=torch.int32, device=dev)
     launches = (ctypes.c_int * 2)()
     lib = _build.load("baselines_insert", _SIGNATURES)
     err = lib.ht_insert_launch(
         keys.data_ptr(), values.data_ptr(), keys.numel(), *_ptrs(st),
         st.max_size_log2, float(load_threshold), old_k.data_ptr(),
-        old_v.data_ptr(), cand.data_ptr(), status.data_ptr(), launches,
-        _build.stream(dev))
+        old_v.data_ptr(), cand.data_ptr(), work_log2, status.data_ptr(),
+        launches, _build.stream(dev))
     _build.check(err, "ht_insert")
     _build.count_launch("ht_insert", launches[0] + launches[1])
 

@@ -754,15 +754,17 @@ cudaError_t run_open(OpenArgs a, const uint32_t* keys, const uint32_t* vals,
 }  // namespace
 
 // keys/vals (n,) u32; the HTState arrays in place: keys/vals (2^max_log2,)
-// u32, size_log2/count/dropped 0-d i32.  Work space: old_k/old_v (2^(max-1),)
-// u32, cand (2^(max-1),) u8, status (4,) i32 on the device.  launches[0]
-// gets the insert kernel's launches, launches[1] the doubling passes'.
+// u32, size_log2/count/dropped 0-d i32.  Work space: old_k/old_v (2^work_log2,)
+// u32, cand (2^work_log2,) u8, enough for a doubling from 2^work_log2 slots
+// (work_log2 -1: none; a doubling from a larger table returns an error),
+// status (4,) i32 on the device.  launches[0] gets the insert kernel's
+// launches, launches[1] the doubling passes'.
 extern "C" int ht_insert_launch(const void* keys, const void* vals, int n,
                                 void* tkeys, void* tvals, void* size_log2,
                                 void* count, void* dropped, int max_log2,
                                 float threshold, void* old_k, void* old_v,
-                                void* cand, void* status, int* launches,
-                                void* stream_) {
+                                void* cand, int work_log2, void* status,
+                                int* launches, void* stream_) {
   launches[0] = launches[1] = 0;
   if (n <= 0) return 0;
   const auto stream = static_cast<cudaStream_t>(stream_);
@@ -790,6 +792,7 @@ extern "C" int ht_insert_launch(const void* keys, const void* vals, int n,
     if (st[1] == kDone) return 0;
     // double 2^L -> 2^(L+1) before key start + st[0]
     const int L = st[2];
+    if (L > work_log2) return static_cast<int>(cudaErrorInvalidValue);
     const int g_old = grid_for(size_t{1} << L);
     ht_stage_kernel<<<g_old, 256, 0, stream>>>(
         a.newk, a.newv, static_cast<uint32_t*>(old_k),

@@ -269,6 +269,35 @@ def test_ch_until_capacity_and_duplicates(rng):
     assert int(tbl.ch_lookup(tst, int(k[0]))) == 0
 
 
+def test_ch_value_equal_to_miss(rng):
+    """A stored value equal to the MISS pattern: the inserts still agree,
+    and the port's lookup returns that value (the reference's lookup loop
+    would never end on it; ROADMAP's deliberate differences)."""
+    keys = same_ch_chain_keys(rng, 12, 3)
+    vals = np.arange(12, dtype=np.uint32)
+    vals[[0, 5, 11]] = MISS
+    jst, tst = ch_trace(keys, vals, 12, 3, 16, 4)
+    assert int(tst.num_buckets) == 3       # one chain of three buckets
+    absent = unique_keys(rng, 4)
+    got = tbl.ch_lookup_many(tst, np.concatenate([keys, absent])).numpy()
+    np.testing.assert_array_equal(got[:12].view(np.uint32), vals)
+    assert (got[12:].view(np.uint32) == MISS).all()
+    assert int(tbl.ch_lookup(tst, int(keys[5]))) == MISS
+    jval = jbl.ch_lookup(jst, jnp.uint32(keys[1]))
+    assert int(jval) == 1
+
+
+def same_ch_chain_keys(rng, n, table_log2):
+    """n distinct keys whose chain slot is 0 in a table of 2**table_log2."""
+    from repro_torch.core import hashing
+    out = []
+    while len(out) < n:
+        k = unique_keys(rng, 64)
+        out += [int(x) for x in k
+                if hashing.hash_dir_host(int(x)) >> (32 - table_log2) == 0]
+    return np.array(out[:n], np.uint32)
+
+
 def test_ch_edge_keys(rng):
     keys = unique_keys(rng, 100)
     keys = np.concatenate([keys[:40], EDGE, keys[40:], EDGE, EDGE[::-1]])
@@ -366,3 +395,25 @@ def test_wrappers_refuse_cpu_tensors():
     ht = tbl.ht_create(6, 4, device="cpu")
     with pytest.raises(ValueError, match="expected"):
         kern.ht_insert_(ht._replace(vals=ht.vals[:10]), k, k, 0.35)
+
+
+@pytest.mark.parametrize("threshold", [0.35, 0.5])
+@pytest.mark.parametrize("init_log2", [4, 6, 9])
+def test_ht_doubling_work_space_bound(rng, init_log2, threshold):
+    """The CUDA wrapper sizes HT's doubling work space from the state's
+    count before the batch: for every batch size up to 64 and a few large
+    ones, the largest table the batch doubles from (the host loop's final
+    size, halved) is never above the bound, and the bound is at most one
+    step above it."""
+    from repro_torch.kernels import baselines_insert as kern
+    max_log2 = 12
+    pre = unique_keys(rng, 3003)
+    st0 = tbl.ht_insert_many(tbl.ht_create(max_log2, init_log2, device="cpu"),
+                             pre[:3], pre[:3], threshold)
+    L0, c0 = int(st0.size_log2), int(st0.count)
+    for n in list(range(65)) + [179, 180, 1000, 3000]:
+        bound = kern._largest_doubling(L0, c0, n, max_log2, threshold)
+        st = tbl.ht_insert_many(st0, pre[3:3 + n], pre[3:3 + n], threshold)
+        L1 = int(st.size_log2)
+        largest = L1 - 1 if L1 > L0 else -1
+        assert bound in (largest, L1), (L0, c0, n, L1, bound)
