@@ -23,8 +23,11 @@ Phases, each of which raises on failure (exit code 1):
       baseline inserts (HT, HTI, CH) against their plain host loops, every
       state array after every batch: HT doubled from 2^4 to its maximum
       2^10 and then dropping, a doubling that loses entries (a fabricated
-      state), HTI at migrate_batch 16 with migrations over several batches,
-      re-inserts of keys still in the old table and a drain, CH with 16
+      state), a fabricated crowded HT table whose batch drops keys ahead of
+      the key that doubles it, HTI at migrate_batch 16 with migrations over
+      several batches, re-inserts of keys still in the old table and a
+      drain, HTI at migrate_batch 4 re-inserting keys its batch migrates
+      and the EMPTY pattern, CH with 16
       chains until its capacity runs out, duplicate keys (inside one window
       too), the keys 0, 0xFFFFFFFE and 0xFFFFFFFF, and 2^16 keys into each
       table; the four lookup entry points (traditional, shortcut, stacked,
@@ -133,8 +136,12 @@ Phases, each of which raises on failure (exit code 1):
       (plain PyTorch lookups: every key not lost returns its value, every
       absent key MISS, and 2^16 sampled lookups equal those on a CPU copy),
       peak memory per table, each insert kernel's time on the last batch
-      against its plain loop on the same state; and Fig. 7's five rows, EH
-      and Shortcut-EH from (d) and (e).
+      (one call on a copy of the state before it; two more calls are
+      logged beside it) against its plain loop on the same state (HT's
+      and HTI's one cooperative launch a batch, with its passes: segments,
+      prefix counts, claim rounds and the most in one segment, events, the
+      grid); and
+      Fig. 7's five rows, EH and Shortcut-EH from (d) and (e).
 
 Each phase's wall seconds go on a line of their own.  The flat index is
 dropped before (f), the sharded one before (g), the KV layer before (h)
@@ -540,6 +547,23 @@ def same_home_keys(np, rng, n: int, log2: int, home: int):
     return ((h * np.uint64(inv)) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
+def crowded_ht_state(np, rng, keys):
+    """HT state arrays of 2^10 slots (capacity 2^12) holding ``keys`` placed
+    by the plain loop, then slots 600..639 overwritten with 40 new
+    keys (a fabricated crowd; the count takes the slots that were EMPTY),
+    and 10 keys whose home is slot 600, whose window the crowd fills."""
+    from repro_torch.core import baselines as bl
+    st = bl.ht_insert_many(bl.ht_create(12, 10, device="cpu"), keys,
+                           rng.integers(0, MISS, keys.size, dtype=np.uint32))
+    tk = st.keys.numpy().view(np.uint32).copy()
+    tv = st.vals.numpy().view(np.uint32).copy()
+    count = int(st.count) + int((tk[600:640] == MISS).sum())
+    tk[600:640] = make_keys(40, 0, int(rng.integers(1 << 30)))[0]
+    tv[600:640] = np.arange(1, 41, dtype=np.uint32)
+    crowd = same_home_keys(np, rng, 10, 10, 600)
+    return (tk, tv, np.int32(10), np.int32(count), np.int32(0)), crowd
+
+
 def baseline_traces(torch, np, seed: int) -> None:
     """(c): the three baseline insert kernels against their plain host
     loops on traces that reach their edges, every state array bit for bit
@@ -606,6 +630,19 @@ def baseline_traces(torch, np, seed: int) -> None:
         bl.ht_insert_many, split(keys_of(10, 302), 10),
         lambda s: int(np.isin(lossy[0][3:43],
                               s[-1].keys.numpy()).sum()) == 32)
+    # a fabricated crowded table (40 slots filled from one home on, so keys
+    # of that home find their 32-slot window full) about 30 entries short of
+    # its load test: the batch's first 10 keys drop, then fresh keys, so
+    # the prefix count that takes every key as fresh ends a segment where
+    # the exact count does not fire; the doubling comes about 10 keys later
+    arrays, crowd = crowded_ht_state(np, rng, keys_of(300, 308))
+    fresh = keys_of(600, 309)
+    run("ht_insert, drops ahead of a doubling in one batch (fabricated)",
+        lambda d: convert.ht_state_from_numpy(arrays, device=d),
+        bl.ht_insert_many,
+        split(np.concatenate([crowd, fresh[:200]]), 210)
+        + split(fresh[200:], 200),
+        lambda s: int(s[0].size_log2) == 11 and int(s[0].dropped) >= 10)
     k = keys_of(1 << 16, 303)
     run("ht_insert, 2^16 keys from 2^9",
         lambda d: bl.ht_create(20, 9, device=d), bl.ht_insert_many,
@@ -622,6 +659,20 @@ def baseline_traces(torch, np, seed: int) -> None:
         + [(k[:1], vals_of(1), dict(migrate_batch=1 << 14))],
         lambda s: sum(bool(x.migrating) for x in s) >= 3
         and not bool(s[-1].migrating))
+    # migrate_batch 4: each batch re-inserts keys of the batch before it,
+    # most still in the old table and migrated later in the same batch (the
+    # stale overwrite), some migrated already, and the EMPTY pattern five
+    # times (values left in EMPTY slots, slots taken later)
+    k = keys_of(2400, 310)
+    batches = []
+    for i in range(0, k.size, 300):
+        b = np.concatenate([k[i:i + 300], k[max(i - 300, 0):i][::3],
+                            np.full(5, MISS, np.uint32)])
+        batches.append(b[rng.permutation(b.size)])
+    run("hti_insert, re-inserts of migrating keys and the EMPTY pattern",
+        lambda d: bl.hti_create(14, 6, device=d), bl.hti_insert_many,
+        [(b, vals_of(b.size), dict(migrate_batch=4)) for b in batches],
+        lambda s: sum(bool(x.migrating) for x in s) >= 4)
     k = keys_of(1 << 16, 305)
     run("hti_insert, 2^16 keys from 2^9",
         lambda d: bl.hti_create(20, 9, device=d), bl.hti_insert_many,
@@ -2350,12 +2401,15 @@ FIG7_SOURCES = {
     "hti_insert": "src/repro/core/baselines.py:219",
     "ch_insert": "src/repro/core/baselines.py:323"}
 # (i): besides the last batch, the batch each open table's kernel is held to
-# its plain loop on, one whose grid passes sweep more than the 2^20 threads
-# of grid_for's largest grid (so their grid-stride loops go round more than
-# once): HT's batch 1 doubles 13 times, 2^9 to 2^22 slots; HTI's batch 3
+# its plain loop on, one whose placement sweeps more old slots than the
+# kernel's grid has threads (the grid the launcher reports, as many blocks
+# as fit on the card at once), so its grid-stride loops go round more than
+# once: HT's batch 1 doubles 13 times, 2^9 to 2^22 slots; HTI's batch 3
 # starts a migration from 2^23 slots and drains it.  CH has no grid pass.
 FIG7_CHECK = {"HT": 1, "HTI": 3}
-GRID_THREADS = 4096 * 256
+# (i): the insert kernel rows' calls, each on a fresh copy of the state; the
+# row is the first, the others are logged beside it
+FIG7_KERNEL_CALLS = 3
 
 
 def open_probed(torch, table_keys, log2: int, q) -> int:
@@ -2469,6 +2523,14 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         host = insert(host, kb.cpu(), vb.cpu())
         return state_err(torch, after, host), (time.perf_counter() - t0) * 1e3
 
+    def pass_line(p) -> str:
+        return (f"launches {p['launches']}; segments {p['segments']} (a "
+                f"records pass, a map pass and a write pass each); prefix "
+                f"counts {p['count_passes']}; claim rounds {p['rounds']} (a "
+                f"claim and a check pass each; most in one segment "
+                f"{p['most_rounds']}); events {p['events']}; grid "
+                f"{p['grid_threads']} threads")
+
     results, rows = {}, []
     for (name, kname, create, insert, lookup, kernel, live_of, count_of,
          grid_work) in tables:
@@ -2477,6 +2539,7 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
+        kern.reset_passes()
         st = create()
         batch_s, batch_ms, held = [], [], []
         for b, i in enumerate(range(0, n, batch), 1):
@@ -2493,8 +2556,9 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
             batch_ms.append(start.elapsed_time(end))
             if b == FIG7_CHECK.get(name):
                 swept = grid_work(prev, st)
-                assert swept > GRID_THREADS, \
-                    f"(i) {name} batch {b} sweeps {swept} slots in grid passes"
+                grid = kern.passes()[kname]["grid_threads"]
+                assert swept > grid > 0, \
+                    f"(i) {name} batch {b} sweeps {swept} slots, grid {grid}"
                 e, h_ms = hold(insert, prev, st, keys[i:i + batch],
                                vals[i:i + batch])
                 held.append(e)
@@ -2507,6 +2571,9 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         launches = _build.launches()
         assert launches.get(kname, 0) >= 16, \
             f"(i) {kname} launched {launches} times"
+        if kname in kern.passes():
+            log(f"(i) {kname} over the 16 batches: "
+                f"{pass_line(kern.passes()[kname])}")
         scalars = {f: getattr(st, f).item() for f in type(st)._fields
                    if getattr(st, f).dim() == 0}
         log(f"(i) {name}: inserted {n} keys in 16 batches: "
@@ -2555,21 +2622,41 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
             f"space, keys, probes, lookup chunks); card {smi}")
         del got, gi, present, plain, host_st
 
-        # the kernel row: the last batch again on the state before it,
-        # against the plain loop on the same inputs
+        # the kernel row: the last batch again on the state before it, one
+        # call on a fresh copy; FIG7_KERNEL_CALLS - 1 more calls, each on a
+        # fresh copy, are logged beside it with the cudaMalloc segments and
+        # allocation retries of PyTorch's caching allocator in each call
         kb, vb = keys[n - batch:], vals[n - batch:]
-        work = type(before_last)(*(hashing.clone(a) for a in before_last))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        kernel(work, kb, vb)
-        end.record()
-        end.synchronize()
-        k_ms = start.elapsed_time(end)
+        call_ms, mallocs = [], []
+        for c in range(FIG7_KERNEL_CALLS):
+            if c:
+                del work
+            work = type(before_last)(*(hashing.clone(a) for a in before_last))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            kern.reset_passes()
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_stats()
+            start.record()
+            kernel(work, kb, vb)
+            end.record()
+            end.synchronize()
+            m1 = torch.cuda.memory_stats()
+            call_ms.append(start.elapsed_time(end))
+            mallocs.append(tuple(m1.get(k, 0) - m0.get(k, 0) for k in (
+                "segment.all.allocated", "num_alloc_retries")))
+            if not c:
+                first = kern.passes().get(kname)
+        k_ms = call_ms[0]
+        if first is not None:
+            log(f"(i) {kname} batch 16 alone: {pass_line(first)}")
+        log(f"(i) {name} kernel row: {k_ms:.4f} ms, one call; all "
+            f"{FIG7_KERNEL_CALLS} calls {[round(x, 4) for x in call_ms]} ms "
+            f"(mean {sum(call_ms) / len(call_ms):.4f}); cudaMalloc segments "
+            f"and allocation retries per call {mallocs}")
         e, plain_ms = hold(insert, before_last, work, kb, vb)
-        log(f"(i) {name} batch 16 again (the kernel alone) against the plain "
-            f"loop: max |err| {e} over every array")
+        log(f"(i) {name} batch 16 again (the kernel alone, its last call) "
+            f"against the plain loop: max |err| {e} over every array")
         held.append(e)
         rows.append(_row(kname,
                          "src/repro_torch/kernels/csrc/baselines_insert.cu",

@@ -27,10 +27,10 @@ keeps:
     leaves the first copy, which the lookup finds.
 
 Each ``*_insert_many`` copies the state and inserts in place.  On CUDA it
-is one kernel launch per batch (``kernels/baselines_insert.py``; HT's
-doubling and HTI's migration start are grid passes between launches); on
-the CPU it is the per-key loop below, which is also the kernels' plain
-version.  The lookups are vectorised PyTorch on either device (the JAX
+is one kernel launch per batch (``kernels/baselines_insert.py``; HT's and
+HTI's place the batch by claim rounds over the whole card, doublings and
+migration starts included); on the CPU it is the per-key loop below,
+which is also the kernels' plain version.  The lookups are vectorised PyTorch on either device (the JAX
 package's are ``vmap``s, no Pallas kernel), in chunks of ``2**20`` keys.
 """
 from __future__ import annotations
