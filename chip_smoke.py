@@ -28,9 +28,11 @@ Phases, each of which raises on failure (exit code 1):
       several batches, re-inserts of keys still in the old table and a
       drain, HTI at migrate_batch 4 re-inserting keys its batch migrates
       and the EMPTY pattern, CH with 16
-      chains until its capacity runs out, duplicate keys (inside one window
-      too), the keys 0, 0xFFFFFFFE and 0xFFFFFFFF, and 2^16 keys into each
-      table; the four lookup entry points (traditional, shortcut, stacked,
+      chains until its capacity runs out, duplicate keys (inside one batch
+      too), the keys 0, 0xFFFFFFFE and 0xFFFFFFFF, one chain of 2^16 keys
+      (its ms per batch grow with the walk to its tail, logged, not with
+      its keys), its capacity running out inside a batch, 2^17 chains
+      (three radix passes), and 2^16 keys into each table; the four lookup entry points (traditional, shortcut, stacked,
       routed) at S = 4, 8, 16 and 512 (the probe's scalar path at 4 and
       8), on indexes whose capacity ran out, absent keys and the EMPTY
       pattern among the probes; within 2e-5 (1 + |want|) in float32 and 2^-7 |want| + 2^-8 max |want| in
@@ -140,7 +142,9 @@ Phases, each of which raises on failure (exit code 1):
       logged beside it) against its plain loop on the same state (HT's
       and HTI's one cooperative launch a batch, with its passes: segments,
       prefix counts, claim rounds and the most in one segment, events, the
-      grid); and
+      grid; CH's, with its radix passes, chain groups and the largest,
+      buckets opened, the grid), and HT's batch 1, HTI's batch 3 and CH's
+      batch 1 held to the plain loop too; and
       Fig. 7's five rows, EH and Shortcut-EH from (d) and (e).
 
 Each phase's wall seconds go on a line of their own.  The flat index is
@@ -570,6 +574,7 @@ def baseline_traces(torch, np, seed: int) -> None:
     after every batch."""
     from repro_torch import convert
     from repro_torch.core import baselines as bl
+    from repro_torch.kernels import baselines_insert as kern
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 300)
     edge = np.array([0, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
@@ -587,6 +592,7 @@ def baseline_traces(torch, np, seed: int) -> None:
     def run(label, create, insert, batches, check=None):
         cu, host = create(dev), create("cpu")
         seen, ms = [], []
+        kern.reset_passes()
         for kb, vb, kw in batches:
             k = torch.from_numpy(kb.view(np.int32)).to(dev)
             v = torch.from_numpy(vb.view(np.int32)).to(dev)
@@ -605,10 +611,12 @@ def baseline_traces(torch, np, seed: int) -> None:
             assert check(seen), f"(c) {label}: the trace missed its case"
         scalars = {f: getattr(host, f).item() for f in type(host)._fields
                    if getattr(host, f).dim() == 0}
+        passes = kern.passes().get("ch_insert")
         log(f"(c) {label}: kernel == plain, {len(type(host)._fields)} "
             f"arrays x {len(batches)} batches "
             f"({sum(b[0].size for b in batches)} keys); {scalars}; kernel "
-            f"ms per batch {[round(x, 3) for x in ms]}")
+            f"ms per batch {[round(x, 3) for x in ms]}"
+            + (f"; {ch_pass_line(passes)}" if passes else ""))
 
     # HT: doublings from 2^4 to its maximum 2^10, then full windows drop;
     # re-inserts and duplicates inside one window; the edge keys
@@ -690,6 +698,24 @@ def baseline_traces(torch, np, seed: int) -> None:
     k = keys_of(1 << 16, 307)
     run("ch_insert, 2^16 keys, 2^12 chains",
         lambda d: bl.ch_create(12, 8192, 16, device=d), bl.ch_insert_many,
+        split(k, 1 << 14))
+    # one chain (T 2, every key of slot 0) takes 2^14 keys a batch: 1024 new
+    # buckets a batch over the whole grid; its ms per batch grow only with
+    # the walk to the tail (1024 links more a batch), not with its keys
+    k = same_home_keys(np, rng, 1 << 16, 2, 0)
+    run("ch_insert, one chain of 2^16 keys",
+        lambda d: bl.ch_create(2, 8192, 16, device=d), bl.ch_insert_many,
+        split(k, 1 << 14), lambda s: int(s[-1].num_buckets) == 4096)
+    # 2^12 chains, room for 3000 buckets: the first batch opens about 4096
+    k = keys_of(1 << 15, 311)
+    run("ch_insert, capacity out inside the first batch",
+        lambda d: bl.ch_create(12, 3000, 16, device=d), bl.ch_insert_many,
+        split(k, 1 << 14), lambda s: int(s[0].num_buckets) == 3000
+        and int(s[0].dropped) > 0)
+    # 2^17 chains: three radix passes, the last over one bit
+    k = keys_of(1 << 16, 312)
+    run("ch_insert, 2^17 chains",
+        lambda d: bl.ch_create(17, 1 << 17, 16, device=d), bl.ch_insert_many,
         split(k, 1 << 14))
 
 
@@ -2400,13 +2426,14 @@ FIG7_SOURCES = {
     "ht_insert": "src/repro/core/baselines.py:113",
     "hti_insert": "src/repro/core/baselines.py:219",
     "ch_insert": "src/repro/core/baselines.py:323"}
-# (i): besides the last batch, the batch each open table's kernel is held to
-# its plain loop on, one whose placement sweeps more old slots than the
-# kernel's grid has threads (the grid the launcher reports, as many blocks
-# as fit on the card at once), so its grid-stride loops go round more than
-# once: HT's batch 1 doubles 13 times, 2^9 to 2^22 slots; HTI's batch 3
-# starts a migration from 2^23 slots and drains it.  CH has no grid pass.
-FIG7_CHECK = {"HT": 1, "HTI": 3}
+# (i): besides the last batch, the batch each table's kernel is held to its
+# plain loop on, one whose grid passes sweep more items than the kernel's
+# grid has threads (the grid the launcher reports, as many blocks as fit on
+# the card at once), so its grid-stride loops go round more than once: HT's
+# batch 1 doubles 13 times, 2^9 to 2^22 slots; HTI's batch 3 starts a
+# migration from 2^23 slots and drains it; CH's batch 1 (every chain empty,
+# every key opens a bucket) places its keys.
+FIG7_CHECK = {"HT": 1, "HTI": 3, "CH": 1}
 # (i): the insert kernel rows' calls, each on a fresh copy of the state; the
 # row is the first, the others are logged beside it
 FIG7_KERNEL_CALLS = 3
@@ -2450,6 +2477,14 @@ def baseline_bytes(torch, name, before, after, keys) -> int:
     return 16 * n + 4 * open_probed(torch, after.new_keys, L1, keys) + moved
 
 
+def ch_pass_line(p) -> str:
+    """CH's kernel statistics (``baselines_insert.CH_FIELDS``) as a line."""
+    return (f"launches {p['launches']}; radix passes {p['radix_passes']}; "
+            f"chain groups {p['groups']} (largest {p['largest_group']} "
+            f"keys); longest walk {p['longest_walk']} links; buckets "
+            f"opened {p['opened']}; grid {p['grid_threads']} threads")
+
+
 def state_err(torch, a, b) -> int:
     """Largest difference of two states' arrays (bit views as int64)."""
     from repro_torch.core import hashing
@@ -2485,8 +2520,9 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
 
     # name, kernel, create, insert, lookup, the kernel alone, live entries
     # (slots that hold a key), the entries the state's own counts say it
-    # holds, and the old slots a batch's grid passes sweep (HT: its largest
-    # doubling's; HTI: a migration it started, which it also drains here)
+    # holds, and the items a batch's grid passes sweep (HT: its largest
+    # doubling's old slots; HTI: those of a migration it started, which it
+    # also drains here; CH: the batch's keys)
     tables = [
         ("HT", "ht_insert",
          lambda: bl.ht_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
@@ -2511,7 +2547,7 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
          lambda st, k, v: kern.ch_insert_(st, k, v),
          lambda st: int(st.counts.sum()),
          lambda st: n - int(st.dropped),
-         lambda a, b: 0),
+         lambda a, b: batch),
     ]
 
     def hold(insert, before, after, kb, vb) -> tuple:
@@ -2524,6 +2560,8 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         return state_err(torch, after, host), (time.perf_counter() - t0) * 1e3
 
     def pass_line(p) -> str:
+        if "radix_passes" in p:
+            return ch_pass_line(p)
         return (f"launches {p['launches']}; segments {p['segments']} (a "
                 f"records pass, a map pass and a write pass each); prefix "
                 f"counts {p['count_passes']}; claim rounds {p['rounds']} (a "
@@ -2558,11 +2596,11 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
                 swept = grid_work(prev, st)
                 grid = kern.passes()[kname]["grid_threads"]
                 assert swept > grid > 0, \
-                    f"(i) {name} batch {b} sweeps {swept} slots, grid {grid}"
+                    f"(i) {name} batch {b} sweeps {swept} items, grid {grid}"
                 e, h_ms = hold(insert, prev, st, keys[i:i + batch],
                                vals[i:i + batch])
                 held.append(e)
-                log(f"(i) {name} batch {b} (grid passes over {swept} slots) "
+                log(f"(i) {name} batch {b} (grid passes over {swept} items) "
                     f"against the plain loop on the state before it: max "
                     f"|err| {e} over every array ({h_ms:.1f} ms on the host)")
             if i == n - batch:

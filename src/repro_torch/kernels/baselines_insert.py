@@ -5,8 +5,10 @@ The JAX package inserts with per-key ``lax.scan``s on the device
 ``ch_insert_many``).  On CUDA (``csrc/baselines_insert.cu``) HT's and HTI's
 batch is one cooperative kernel launch over the whole card, which places the
 insert stream by claim rounds, HT's doublings and HTI's migration starts
-included; CH's batch is one single-block launch.  Their plain versions are
-the per-key loops of ``core/baselines.py``, which the CPU path runs.
+included; CH's batch is one cooperative launch too, which places every key
+by prefix counts (its chain's keys grouped by a radix sort of their chain
+slots, its new bucket numbered in key order).  Their plain versions are the
+per-key loops of ``core/baselines.py``, which the CPU path runs.
 """
 from __future__ import annotations
 
@@ -21,13 +23,16 @@ from repro_torch.kernels import _build
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _STATS = ctypes.c_int * 7
+_CH_STATS = ctypes.c_int * 7
 _SIGNATURES = {
     "ht_insert_launch": [_P, _P, _I] + [_P] * 5 + [_I, _F, _P, _L, _I, _I,
                                                    _STATS, _P],
     "hti_insert_launch": [_P, _P, _I] + [_P] * 11 + [_I, _F, _I, _P, _L, _I,
                                                      _STATS, _P],
-    "ch_insert_launch": [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P],
+    "ch_insert_launch": [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P, _CH_STATS,
+                                                    _P],
     "open_work_bytes": [_L, _I, _I],
+    "ch_work_bytes": [_L, _I],
 }
 #: the open tables' kernel statistics, as the launcher reports them: kernel
 #: launches, segments (each a records and map pass and a write pass),
@@ -36,14 +41,21 @@ _SIGNATURES = {
 #: migration starts), the grid's threads
 PASS_FIELDS = ("launches", "segments", "count_passes", "rounds",
                "most_rounds", "events", "grid_threads")
+#: CH's: kernel launches, radix passes, chain groups (chains the batch
+#: touches), the largest group (a chain's keys in one batch), the longest
+#: walk to a chain's tail (links followed), new buckets opened, the grid's
+#: threads
+CH_FIELDS = ("launches", "radix_passes", "groups", "largest_group",
+             "longest_walk", "opened", "grid_threads")
+_LARGEST = ("most_rounds", "largest_group", "longest_walk", "grid_threads")
 _passes: dict = {}
 _passes_lock = threading.Lock()
 
 
 def passes() -> dict:
     """``{kernel: {field: value}}`` summed over the calls since
-    :func:`reset_passes` (``most_rounds`` and ``grid_threads``: the
-    largest)."""
+    :func:`reset_passes` (``most_rounds``, ``largest_group``,
+    ``longest_walk`` and ``grid_threads``: the largest)."""
     with _passes_lock:
         return {k: dict(v) for k, v in _passes.items()}
 
@@ -53,18 +65,19 @@ def reset_passes() -> None:
         _passes.clear()
 
 
-def _record(name: str, stats) -> None:
+def _record(name: str, stats, fields=PASS_FIELDS) -> None:
     with _passes_lock:
-        acc = _passes.setdefault(name, dict.fromkeys(PASS_FIELDS, 0))
-        for field, x in zip(PASS_FIELDS, stats):
-            acc[field] = max(acc[field], x) if field in (
-                "most_rounds", "grid_threads") else acc[field] + x
+        acc = _passes.setdefault(name, dict.fromkeys(fields, 0))
+        for field, x in zip(fields, stats):
+            acc[field] = max(acc[field], x) if field in _LARGEST \
+                else acc[field] + x
     _build.count_launch(name, stats[0])
 
 
 def _lib():
     lib = _build.load("baselines_insert", _SIGNATURES)
     lib.open_work_bytes.restype = ctypes.c_longlong
+    lib.ch_work_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -189,17 +202,26 @@ def hti_insert_(st, keys: torch.Tensor, values: torch.Tensor,
 
 
 def ch_insert_(st, keys: torch.Tensor, values: torch.Tensor) -> None:
-    """Insert into the CUDA ``CHState`` ``st`` in place, in order."""
+    """Insert into the CUDA ``CHState`` ``st`` in place, in order.  The work
+    space (about 28 bytes a key) is sized from the batch."""
     _check_batch("ch_insert", keys, values)
     C, S = st.bucket_keys.shape
     _check_shapes("ch_insert", (1 << st.table_log2,), st.heads)
     _check_shapes("ch_insert", (C, S), st.bucket_vals)
     _check_shapes("ch_insert", (C,), st.next_bucket, st.counts)
     dev = _build.require_cuda("ch_insert", keys, values, *st)
-    if keys.numel() == 0:
+    n = keys.numel()
+    if n == 0:
         return
-    err = _lib().ch_insert_launch(
-        keys.data_ptr(), values.data_ptr(), keys.numel(), *_ptrs(st),
-        st.table_log2, C, S, _build.stream(dev))
+    if max(C, S) + n >= 1 << 31:
+        raise ValueError(f"ch_insert: {n} keys past a capacity of {C} "
+                         f"buckets of {S} slots pass 2**31")
+    lib = _lib()
+    work = torch.empty(lib.ch_work_bytes(n, st.table_log2),
+                       dtype=torch.uint8, device=dev)
+    stats = _CH_STATS()
+    err = lib.ch_insert_launch(
+        keys.data_ptr(), values.data_ptr(), n, *_ptrs(st), st.table_log2, C,
+        S, work.data_ptr(), stats, _build.stream(dev))
     _build.check(err, "ch_insert")
-    _build.count_launch("ch_insert")
+    _record("ch_insert", stats, CH_FIELDS)

@@ -37,12 +37,32 @@
 //     segment begins.  Earlier segments stay final: later items never
 //     displace earlier ones.
 //
-// CH: one block a batch.  All warps resolve a window's records (the chain's
-// tail bucket and its count, from the state as the window begins); warp 0
-// commits in key order, 32 keys a step; a key whose chain an earlier key of
-// its window has goes alone, at the chain as the window left it (a map of
-// the window's chains in shared memory); new buckets go in key order by a
-// prefix count.  Bound: latency (three dependent reads a key).
+// CH: one cooperative kernel a batch over the whole card.  An append never
+// looks for the key, so where key i lands is a closed form of prefix counts:
+// its rank r among the batch's keys of its chain (key order), the chain's
+// tail and count as the batch begins (an empty chain a full phantom bucket:
+// base S), and for a key that opens a bucket the number of keys before it
+// in the batch that open one.  Position p = base + r goes to slot p % S of
+// the chain's (p / S)-th new bucket (0: the old tail); new buckets are
+// numbered num_buckets + that prefix count, and one numbered past the
+// capacity drops its keys (so do the chain's later ones, numbered later
+// still).  The passes, a grid sync between each two:
+//
+//   * a stable LSD radix sort of the positions by chain slot (kDigitBits
+//     a pass, ceil(T / kDigitBits) passes): per-block digit histograms,
+//     then each block scans them for its digits' offsets and scatters its
+//     tile in order (a warp's ranks from ballots over the digit's bits);
+//   * chain groups: a grid-wide prefix count of the sorted slots' group
+//     heads gives each position its group, each group its first position;
+//   * one thread a group walks its chain to the tail (the only serial
+//     work, as the reference's per-key walk) and sets the tail's count;
+//   * open flags back at key positions, and a grid-wide prefix count in
+//     key order numbers the new buckets;
+//   * the writes: keys, values, new buckets' counts and links, the two
+//     scalars.
+//
+// Bound: random sectors, not bytes: the walks' dependent reads, the sort's
+// scattered writes and the write pass's row a key.
 //
 // The state is updated in place; the caller hands in a copy (copy-on-write).
 #include <algorithm>
@@ -55,10 +75,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;     // == ch_insert_kernel's __launch_bounds__
-constexpr int kWindowKeys = 1024;  // CH: keys a window
 constexpr int kProbe = 32;         // the probe window (PROBE_WINDOW)
-constexpr size_t kMaxShared = 232448;
 constexpr int kPlaceThreads = 512;  // == place_kernel's __launch_bounds__
 constexpr long long kSegment = 1ll << 22;  // open tables: positions a segment
 constexpr int32_t kFree = INT_MAX;  // an unclaimed slot
@@ -105,41 +122,6 @@ struct Rec {
   uint8_t kind, state, pos, first;  // pos: the window offset reached
 };
 static_assert(sizeof(Rec) == 32, "Rec");
-
-// Dynamic shared memory of CH's insert kernel: the window's records and its
-// chain map of 2R entries (16 bytes an entry).
-struct ChRec {
-  uint32_t key, val;
-  int32_t slot;   // chain slot
-  int32_t tail;   // the chain's last bucket (-1: empty chain)
-  int32_t cnt;    // counts[tail]
-  int32_t entry;  // its chain's entry in the window map
-  int32_t dup;    // an earlier key of the window has the same chain
-  int32_t pad;
-};
-static_assert(sizeof(ChRec) == 32, "ChRec");
-
-__host__ __device__ constexpr size_t ch_smem_bytes() {
-  return kWindowKeys * (sizeof(ChRec) + 2 * 16);
-}
-static_assert(ch_smem_bytes() + 256 <= kMaxShared,
-              "shared memory of one block");
-
-__device__ __forceinline__ uint32_t map_hash(int32_t key, int log2) {
-  return (static_cast<uint32_t>(key) * repro::kHashC2) >> (32 - log2);
-}
-
-// Open-addressing map in shared memory, keys >= 0 (-1 free): the entry of
-// `key`, claimed if new.  Safe for lanes inserting different keys at once.
-__device__ __forceinline__ int map_entry(int32_t* keys, int log2, int32_t key) {
-  const uint32_t m = (1u << log2) - 1u;
-  uint32_t e = map_hash(key, log2);
-  while (true) {
-    const int32_t old = atomicCAS(keys + e, -1, key);
-    if (old == -1 || old == key) return static_cast<int>(e);
-    e = (e + 1u) & m;
-  }
-}
 
 // The key map's hash: the murmur3 finalizer.  Not the tables' multiplicative
 // hash: old entries come in old-slot order, sorted by its top bits, and a
@@ -870,143 +852,353 @@ __global__ void __launch_bounds__(kPlaceThreads, 2)
   }
 }
 
-// ---- CH --------------------------------------------------------------------
+// ---- CH: one grid-wide pass ------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-ch_insert_kernel(const uint32_t* __restrict__ keys,
-                 const uint32_t* __restrict__ vals, int n, int32_t* heads,
-                 uint32_t* bucket_keys, uint32_t* bucket_vals,
-                 int32_t* next_bucket, int32_t* counts, int32_t* num_buckets,
-                 int32_t* dropped_p, int T, int C, int S) {
-  constexpr int W = kWindowKeys;
-  constexpr int MAP_LOG2 = 11;  // 2W entries
-  extern __shared__ __align__(16) unsigned char smem[];
-  ChRec* recs = reinterpret_cast<ChRec*>(smem);
-  int32_t* map_key = reinterpret_cast<int32_t*>(recs + W);  // chain slot
-  int32_t* map_min = map_key + 2 * W;   // its first key in the window
-  int32_t* map_tail = map_min + 2 * W;  // its tail and count as committed
-  int32_t* map_cnt = map_tail + 2 * W;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  int nb = *num_buckets;  // warp 0's running state
-  int dropped = *dropped_p;
+constexpr int kChThreads = 512;  // == ch_kernel's __launch_bounds__
+constexpr int kChWarps = kChThreads / 32;
+constexpr int kDigitBits = 8;    // the radix sort's digit
+constexpr int kDigits = 1 << kDigitBits;
+// CH's control words (zeroed by the launcher): three accumulators, then the
+// statistics the last thread writes
+constexpr int kChDrops = 0;      // dropped keys
+constexpr int kChLargest = 1;    // the largest group
+constexpr int kChWalk = 2;       // the longest walk (links followed)
+constexpr int kChStat = 3;       // radix passes, groups, opened, grid threads
+constexpr int kChStatWords = 4;
+constexpr int kChCtlWords = kChStat + kChStatWords;
+constexpr int kChLaunchStats = 7;  // the ints CH's launcher reports
 
-  for (int base = 0; base < n; base += W) {
-    const int m = min(W, n - base);
-    for (int e = tid; e < 2 * W; e += kThreads) {
-      map_key[e] = -1;
-      map_min[e] = INT_MAX;
+// CH's state, in place, and its work space (n keys; T, C, S its shape).
+struct ChArgs {
+  const uint32_t* keys;
+  const uint32_t* vals;
+  int n;
+  int32_t* heads;
+  uint32_t* bk;
+  uint32_t* bv;
+  int32_t* next;
+  int32_t* counts;
+  int32_t* num_buckets;
+  int32_t* dropped;
+  int T, C, S;
+  int32_t* slot[2];  // the sort's slots and positions, ping-pong (n each)
+  int32_t* pos[2];
+  int32_t* grp;      // a sorted position's group (n)
+  int32_t* gstart;   // a group's first sorted position (n + 1)
+  int32_t* id;       // a key's open flag, then its new bucket's number (n)
+  int32_t* hist;     // the blocks' digit histograms (blocks x kDigits)
+  long long* agg;    // the blocks' sums of a prefix count (kMaxBlocks)
+  unsigned long long* ctl;
+};
+
+// The sum over this block's tile of [0, n) of f(k) into agg[blockIdx.x]:
+// the first half of a grid-wide prefix count (every thread calls it).
+template <class F>
+__device__ void tile_sum(long long n, const F& f, long long* agg,
+                         long long* sh) {
+  long long lo, hi;
+  block_tile(0, n, &lo, &hi);
+  long long mine = 0;
+  for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) mine += f(k);
+  mine = block_sum(mine, sh);
+  if (threadIdx.x == 0) agg[blockIdx.x] = mine;
+}
+
+// The second half, after a grid sync: g(k, x, before) for each k of the
+// tile, x = f(k) and before the sum of f over [0, k).  Returns the sum over
+// [0, n) (the same in every block).
+template <class F, class G>
+__device__ long long tile_scan(long long n, const F& f, const G& g,
+                               const long long* agg, int* sums,
+                               long long* sh) {
+  if (threadIdx.x < 32) {
+    long long before = 0, total = 0;
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += 32) {
+      const long long x = __ldcg(agg + b);
+      total += x;
+      if (b < static_cast<int>(blockIdx.x)) before += x;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      before += __shfl_down_sync(repro::kFullMask, before, d);
+      total += __shfl_down_sync(repro::kFullMask, total, d);
+    }
+    if (threadIdx.x == 0) {
+      sh[0] = before;
+      sh[1] = total;
+    }
+  }
+  __syncthreads();
+  long long run = sh[0];
+  const long long total = sh[1];
+  __syncthreads();
+  long long lo, hi;
+  block_tile(0, n, &lo, &hi);
+  for (long long b0 = lo; b0 < hi; b0 += blockDim.x) {
+    const long long k = b0 + threadIdx.x;
+    const int x = k < hi ? f(k) : 0;
+    int tot;
+    const int ex = block_scan(x, sums, &tot);
+    if (k < hi) g(k, x, run + ex);
+    run += tot;
+  }
+  return total;
+}
+
+// The slot and position that radix pass `p` reads at k: pass 0 hashes the
+// keys (position k), a later pass reads the previous pass's output.
+__device__ __forceinline__ void sort_src(const ChArgs& a, int p, long long k,
+                                         int32_t* slot, int32_t* pos) {
+  if (p == 0) {
+    *slot = repro::dir_slot(repro::hash_dir(__ldg(a.keys + k)), a.T);
+    *pos = static_cast<int32_t>(k);
+  } else {
+    *slot = __ldcg(a.slot[(p - 1) & 1] + k);
+    *pos = __ldcg(a.pos[(p - 1) & 1] + k);
+  }
+}
+
+// Radix pass p over the digit at bit p * kDigitBits: the block's digit
+// histogram, a grid sync, then its tile scattered stably into buffer p & 1.
+// The whole grid calls it (it syncs the grid).
+__device__ void radix_pass(const ChArgs& a, cg::grid_group& grid, int p,
+                           int* cnt, int* next_at, int* sums) {
+  const int shift = p * kDigitBits;
+  const int bits = min(kDigitBits, a.T - shift);
+  const int dmask = (1 << bits) - 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long lo, hi;
+  block_tile(0, a.n, &lo, &hi);
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) cnt[d] = 0;
+  __syncthreads();
+  for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+    int32_t s, q;
+    sort_src(a, p, k, &s, &q);
+    atomicAdd(cnt + ((s >> shift) & dmask), 1);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+    a.hist[blockIdx.x * kDigits + d] = cnt[d];
+  }
+  grid.sync();
+  // the block's first destination of each digit: the digits below it over
+  // all blocks, then this digit in the blocks before this one (a thread
+  // takes `per` consecutive digits)
+  const int per = (kDigits + blockDim.x - 1) / blockDim.x;
+  const int d0 = min(kDigits, static_cast<int>(threadIdx.x) * per);
+  const int d1 = min(kDigits, d0 + per);
+  int total = 0;
+  for (int d = d0; d < d1; ++d) {
+    int all = 0, before = 0;
+    for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {
+      const int x = __ldcg(a.hist + b * kDigits + d);
+      all += x;
+      if (b < static_cast<int>(blockIdx.x)) before += x;
+    }
+    next_at[d] = before;
+    cnt[d] = all;
+    total += all;
+  }
+  int tot;
+  int run = block_scan(total, sums, &tot);
+  for (int d = d0; d < d1; ++d) {
+    next_at[d] += run;
+    run += cnt[d];
+  }
+  __syncthreads();
+  // the tile, blockDim keys a step: a key's rank among its warp's keys of
+  // its digit (ballots over the digit's bits), the warps' counts in cnt
+  int32_t* out_s = a.slot[p & 1];
+  int32_t* out_p = a.pos[p & 1];
+  const unsigned lt = (1u << lane) - 1u;
+  for (long long b0 = lo; b0 < hi; b0 += blockDim.x) {
+    const long long k = b0 + threadIdx.x;
+    const bool in = k < hi;
+    int32_t s = 0, q = 0;
+    if (in) sort_src(a, p, k, &s, &q);
+    const int d = (s >> shift) & dmask;
+    unsigned peers = __ballot_sync(repro::kFullMask, in);
+    for (int bit = 0; bit < bits; ++bit) {
+      const unsigned set = __ballot_sync(repro::kFullMask, (d >> bit) & 1);
+      peers &= ((d >> bit) & 1) ? set : ~set;
+    }
+    for (int e = threadIdx.x; e < kChWarps * kDigits; e += blockDim.x) {
+      cnt[e] = 0;
     }
     __syncthreads();
-    // ---- resolve: the chain's tail and count (all threads) ----------------
-    for (int t = tid; t < m; t += kThreads) {
-      const uint32_t key = __ldg(keys + base + t);
-      const int32_t slot = repro::dir_slot(repro::hash_dir(key), T);
-      int32_t b = heads[slot];
-      while (b >= 0) {
-        const int32_t nx = next_bucket[b];
-        if (nx < 0) break;
-        b = nx;
+    if (in && (peers & lt) == 0u) cnt[warp * kDigits + d] = __popc(peers);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kDigits; e += blockDim.x) {
+      int at = next_at[e];
+      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+        const int c = cnt[w * kDigits + e];
+        cnt[w * kDigits + e] = at;
+        at += c;
       }
-      const int e = map_entry(map_key, MAP_LOG2, slot);
-      atomicMin(map_min + e, t);
-      recs[t] = ChRec{key, __ldg(vals + base + t), slot, b,
-                      b >= 0 ? counts[b] : 0, e, 0, 0};
+      next_at[e] = at;
     }
     __syncthreads();
-    for (int t = tid; t < m; t += kThreads) {
-      ChRec& r = recs[t];
-      r.dup = map_min[r.entry] < t;
-      if (!r.dup) {
-        map_tail[r.entry] = r.tail;
-        map_cnt[r.entry] = r.cnt;
-      }
-    }
-    __syncthreads();
-    // ---- commit in order (warp 0) -------------------------------------------
-    if (tid < 32) {
-      const unsigned lt = (1u << lane) - 1u;
-      int i = 0;
-      while (i < m) {
-        const int j = i + lane;
-        const bool act = j < m;
-        ChRec r{};
-        if (act) r = recs[j];
-        const unsigned dups = __ballot_sync(repro::kFullMask, act && r.dup);
-        const int f = dups ? __ffs(dups) - 1 : 32;
-        const bool mine = act && lane < f;
-        const bool room = r.tail >= 0 && r.cnt < S;
-        const unsigned allocs = __ballot_sync(repro::kFullMask, mine && !room);
-        const int b = nb + __popc(allocs & lt);
-        if (mine && room) {  // append, no duplicate check
-          const size_t at = static_cast<size_t>(r.tail) * S + r.cnt;
-          bucket_keys[at] = r.key;
-          bucket_vals[at] = r.val;
-          counts[r.tail] = r.cnt + 1;
-          map_cnt[r.entry] = r.cnt + 1;
-        } else if (mine && b < C) {  // a new bucket, linked in
-          const size_t at = static_cast<size_t>(b) * S;
-          bucket_keys[at] = r.key;
-          bucket_vals[at] = r.val;
-          counts[b] = 1;
-          if (r.tail < 0) {
-            heads[r.slot] = b;
-          } else {
-            next_bucket[r.tail] = b;
-          }
-          map_tail[r.entry] = b;
-          map_cnt[r.entry] = 1;
-        }
-        const int want = __popc(allocs);
-        const int got = max(0, min(want, C - nb));
-        nb += got;
-        dropped += want - got;
-        if (dups == 0u) {
-          i += 32;
-          continue;
-        }
-        i += f;
-        __syncwarp();  // the prefix's map entries reach lane 0
-        // ---- key i alone, at its chain as the window left it ---------------
-        int grew = 0, lost = 0;
-        if (lane == 0) {
-          const ChRec q = recs[i];
-          const int32_t tail = map_tail[q.entry];
-          const int32_t cnt = map_cnt[q.entry];
-          if (tail >= 0 && cnt < S) {
-            const size_t at = static_cast<size_t>(tail) * S + cnt;
-            bucket_keys[at] = q.key;
-            bucket_vals[at] = q.val;
-            counts[tail] = cnt + 1;
-            map_cnt[q.entry] = cnt + 1;
-          } else if (nb < C) {
-            const size_t at = static_cast<size_t>(nb) * S;
-            bucket_keys[at] = q.key;
-            bucket_vals[at] = q.val;
-            counts[nb] = 1;
-            if (tail < 0) {
-              heads[q.slot] = nb;
-            } else {
-              next_bucket[tail] = nb;
-            }
-            map_tail[q.entry] = nb;
-            map_cnt[q.entry] = 1;
-            grew = 1;
-          } else {
-            lost = 1;
-          }
-        }
-        nb += __shfl_sync(repro::kFullMask, grew, 0);
-        dropped += __shfl_sync(repro::kFullMask, lost, 0);
-        __syncwarp();
-        ++i;
-      }
+    if (in) {
+      const int at = cnt[warp * kDigits + d] + __popc(peers & lt);
+      out_s[at] = s;
+      out_p[at] = q;
     }
     __syncthreads();
   }
-  if (tid == 0) {
-    *num_buckets = nb;
-    *dropped_p = dropped;
+  grid.sync();
+}
+
+// CH's batch insert: one cooperative launch, the whole batch.
+__global__ void __launch_bounds__(kChThreads, 2) ch_kernel(ChArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int cnt[kChWarps * kDigits];
+  __shared__ int next_at[kDigits];
+  __shared__ int sums[33];
+  __shared__ long long shared2[2];
+  const long long n = a.n;
+  const int S = a.S;
+  const int passes = (a.T + kDigitBits - 1) / kDigitBits;
+  const long long nb0 = *a.num_buckets;
+  // ---- the positions sorted by chain slot, stably ----------------------------
+  for (int p = 0; p < passes; ++p) radix_pass(a, grid, p, cnt, next_at, sums);
+  const int f = (passes + 1) & 1;  // the buffer the last pass wrote
+  const int32_t* ss = a.slot[f];
+  const int32_t* sp = a.pos[f];
+  if (passes == 0) {  // one chain: the positions in key order
+    for (long long k = grid_tid(); k < n; k += grid_threads()) {
+      a.slot[f][k] = 0;
+      a.pos[f][k] = static_cast<int32_t>(k);
+    }
+    grid.sync();
+  }
+  // ---- chain groups: a group starts where the sorted slot changes ----------
+  auto head = [&](long long k) -> int {
+    return k == 0 || __ldcg(ss + k) != __ldcg(ss + k - 1);
+  };
+  tile_sum(n, head, a.agg, shared2);
+  grid.sync();
+  const long long groups = tile_scan(
+      n, head,
+      [&](long long k, int h, long long before) {
+        if (h) a.gstart[before] = static_cast<int32_t>(k);
+        a.grp[k] = static_cast<int32_t>(before + h - 1);
+      },
+      a.agg, sums, shared2);
+  if (grid_tid() == 0) a.gstart[groups] = static_cast<int32_t>(n);
+  grid.sync();
+  // ---- one thread a group: its chain's tail and count ----------------------
+  // (the sort's other buffers are free: a group's tail and base there); the
+  // old tail's new count written here, where its count was just read (each
+  // tail is one chain's: no other group reads it)
+  int32_t* gtail = a.slot[f ^ 1];
+  int32_t* gbase = a.pos[f ^ 1];
+  int largest = 0, walk = 0;
+  for (long long g = grid_tid(); g < groups; g += grid_threads()) {
+    const int32_t k0 = __ldcg(a.gstart + g);
+    const int32_t size = __ldcg(a.gstart + g + 1) - k0;
+    largest = max(largest, size);
+    int32_t b = __ldcg(a.heads + __ldcg(ss + k0));
+    int hops = 0;
+    while (b >= 0) {
+      const int32_t nx = __ldcg(a.next + b);
+      if (nx < 0) break;
+      b = nx;
+      ++hops;
+    }
+    walk = max(walk, hops);
+    gtail[g] = b;
+    if (b >= 0) {
+      const int32_t c = __ldcg(a.counts + b);
+      gbase[g] = c;
+      a.counts[b] = min(c + size, S);
+    } else {
+      gbase[g] = S;
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    largest = max(largest, __shfl_down_sync(repro::kFullMask, largest, d));
+    walk = max(walk, __shfl_down_sync(repro::kFullMask, walk, d));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    using ull = unsigned long long;
+    if (largest) atomicMax(a.ctl + kChLargest, static_cast<ull>(largest));
+    if (walk) atomicMax(a.ctl + kChWalk, static_cast<ull>(walk));
+  }
+  grid.sync();
+  // ---- open flags at key positions ------------------------------------------
+  // sorted position k: group g, rank r, chain position base + r
+  for (long long k = grid_tid(); k < n; k += grid_threads()) {
+    const int32_t g = __ldcg(a.grp + k);
+    const long long p = __ldcg(gbase + g) + (k - __ldcg(a.gstart + g));
+    a.id[__ldcg(sp + k)] = p >= S && p % S == 0;
+  }
+  grid.sync();
+  // ---- the new buckets numbered in key order --------------------------------
+  auto opens = [&](long long i) -> int { return __ldcg(a.id + i); };
+  tile_sum(n, opens, a.agg, shared2);
+  grid.sync();
+  const long long opened = tile_scan(
+      n, opens,
+      [&](long long i, int o, long long before) {
+        if (o) a.id[i] = static_cast<int32_t>(nb0 + before);
+      },
+      a.agg, sums, shared2);
+  grid.sync();
+  // ---- the writes ------------------------------------------------------------
+  long long drops = 0;
+  for (long long k = grid_tid(); k < n; k += grid_threads()) {
+    const int32_t g = __ldcg(a.grp + k);
+    const int32_t k0 = __ldcg(a.gstart + g);
+    const int32_t size = __ldcg(a.gstart + g + 1) - k0;
+    const int32_t t = __ldcg(gtail + g);
+    const long long base = __ldcg(gbase + g);
+    const long long r = k - k0;
+    const long long p = base + r;
+    const long long q = p / S;
+    const int j = static_cast<int>(p % S);
+    const int32_t i = __ldcg(sp + k);
+    const uint32_t key = __ldg(a.keys + i), val = __ldg(a.vals + i);
+    if (q == 0) {
+      const size_t at = static_cast<size_t>(t) * S + j;
+      a.bk[at] = key;
+      a.bv[at] = val;
+      continue;
+    }
+    const int32_t b = __ldcg(a.id + __ldcg(sp + k - j));  // its opener's
+    if (b >= a.C) {
+      ++drops;
+      continue;
+    }
+    const size_t at = static_cast<size_t>(b) * S + j;
+    a.bk[at] = key;
+    a.bv[at] = val;
+    if (j == 0) {
+      a.counts[b] = static_cast<int32_t>(min(base + size - q * S, 0ll + S));
+      if (q > 1) {
+        a.next[__ldcg(a.id + __ldcg(sp + k - S))] = b;
+      } else if (t >= 0) {
+        a.next[t] = b;
+      } else {
+        a.heads[__ldcg(ss + k)] = b;
+      }
+    }
+  }
+  drops = block_sum(drops, shared2);
+  if (threadIdx.x == 0 && drops) {
+    atomicAdd(a.ctl + kChDrops, static_cast<unsigned long long>(drops));
+  }
+  grid.sync();
+  if (grid_tid() == 0) {
+    const long long got = min(opened, a.C - nb0);
+    *a.num_buckets = static_cast<int32_t>(nb0 + got);
+    *a.dropped =
+        static_cast<int32_t>(*a.dropped + __ldcg(a.ctl + kChDrops));
+    a.ctl[kChStat + 0] = passes;
+    a.ctl[kChStat + 1] = static_cast<unsigned long long>(groups);
+    a.ctl[kChStat + 2] = static_cast<unsigned long long>(got);
+    a.ctl[kChStat + 3] = static_cast<unsigned long long>(grid_threads());
   }
 }
 
@@ -1121,6 +1313,82 @@ int run_place(PlaceArgs& a, int* stats, cudaStream_t stream) {
   return static_cast<int>(st[kError]);
 }
 
+// CH's work space, carved from one buffer and sized from the batch: the
+// control words, the blocks' sums, their digit histograms (none for T 0),
+// the sort's two buffers of slots and positions, a sorted position's group,
+// a group's first position and a key's bucket number.
+struct ChLayout {
+  size_t agg, hist, slot[2], pos[2], grp, gstart, id, total;
+};
+
+// The CH grid's blocks at most: one a kChThreads keys.
+int ch_max_blocks(long long n) {
+  return static_cast<int>(std::min<long long>(
+      kMaxBlocks, std::max(1ll, (n + kChThreads - 1) / kChThreads)));
+}
+
+ChLayout ch_layout(long long n, int T) {
+  ChLayout l{};
+  const size_t keys = static_cast<size_t>(n) * sizeof(int32_t);
+  size_t at = align256(kChCtlWords * sizeof(unsigned long long));
+  l.agg = at;
+  at = align256(at + kMaxBlocks * sizeof(long long));
+  l.hist = at;
+  if (T > 0) at = align256(at + size_t{kDigits} * ch_max_blocks(n) * 4);
+  for (int k = 0; k < 2; ++k) {
+    l.slot[k] = at;
+    at = align256(at + keys);
+    l.pos[k] = at;
+    at = align256(at + keys);
+  }
+  l.grp = at;
+  at = align256(at + keys);
+  l.gstart = at;
+  at = align256(at + keys + sizeof(int32_t));
+  l.id = at;
+  at = align256(at + keys);
+  l.total = at;
+  return l;
+}
+
+// One cooperative launch of ch_kernel over every SM (as many blocks as fit
+// at once, at most one a kChThreads keys); then the statistics to `stats`
+// (the stream synced): [launches, radix passes, groups, the largest group,
+// the longest walk, buckets opened, grid threads].
+int run_ch(ChArgs& a, int* stats, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ch_kernel,
+                                                        kChThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = std::min(per_sm * sms, ch_max_blocks(a.n));
+  if (blocks < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaMemsetAsync(a.ctl, 0, kChCtlWords * sizeof(unsigned long long),
+                        stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ch_kernel),
+                                    blocks, kChThreads, args, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned long long st[kChCtlWords];
+  err = cudaMemcpyAsync(st, a.ctl, sizeof(st), cudaMemcpyDeviceToHost, stream);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats[0] = 1;
+  stats[1] = static_cast<int>(st[kChStat + 0]);
+  stats[2] = static_cast<int>(st[kChStat + 1]);
+  stats[3] = static_cast<int>(st[kChLargest]);
+  stats[4] = static_cast<int>(st[kChWalk]);
+  stats[5] = static_cast<int>(st[kChStat + 2]);
+  stats[6] = static_cast<int>(st[kChStat + 3]);
+  return 0;
+}
+
 }  // namespace
 
 // Bytes of the open tables' work space (`work` of the two launchers).
@@ -1128,6 +1396,11 @@ extern "C" long long open_work_bytes(long long positions, int owner_log2,
                                      int stage_log2) {
   return static_cast<long long>(
       open_layout(positions, owner_log2, stage_log2).total);
+}
+
+// Bytes of CH's work space for n keys into a table of 2^T chains.
+extern "C" long long ch_work_bytes(long long n, int T) {
+  return static_cast<long long>(ch_layout(n, T).total);
 }
 
 // keys/vals (n,) u32; the HTState arrays in place: keys/vals (2^max_log2,)
@@ -1201,26 +1474,44 @@ extern "C" int hti_insert_launch(const void* keys, const void* vals, int n,
 
 // keys/vals (n,) u32; the CHState arrays in place: heads (2^T,) i32,
 // bucket_keys/vals (C, S) u32, next_bucket/counts (C,) i32, num_buckets and
-// dropped 0-d i32.  One launch.
+// dropped 0-d i32.  work: ch_work_bytes(n, T) bytes; stats: kChLaunchStats
+// ints (run_ch).
 extern "C" int ch_insert_launch(const void* keys, const void* vals, int n,
                                 void* heads, void* bucket_keys,
                                 void* bucket_vals, void* next_bucket,
                                 void* counts, void* num_buckets, void* dropped,
-                                int T, int C, int S, void* stream) {
+                                int T, int C, int S, void* work, int* stats,
+                                void* stream) {
+  std::fill(stats, stats + kChLaunchStats, 0);
   if (n <= 0) return 0;
   if (S < 1 || C < 0 || T < 0 || T > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = ch_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      ch_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ch_insert_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(vals), n,
-      static_cast<int32_t*>(heads), static_cast<uint32_t*>(bucket_keys),
-      static_cast<uint32_t*>(bucket_vals), static_cast<int32_t*>(next_bucket),
-      static_cast<int32_t*>(counts), static_cast<int32_t*>(num_buckets),
-      static_cast<int32_t*>(dropped), T, C, S);
-  return static_cast<int>(cudaGetLastError());
+  ChArgs a{};
+  a.keys = static_cast<const uint32_t*>(keys);
+  a.vals = static_cast<const uint32_t*>(vals);
+  a.n = n;
+  a.heads = static_cast<int32_t*>(heads);
+  a.bk = static_cast<uint32_t*>(bucket_keys);
+  a.bv = static_cast<uint32_t*>(bucket_vals);
+  a.next = static_cast<int32_t*>(next_bucket);
+  a.counts = static_cast<int32_t*>(counts);
+  a.num_buckets = static_cast<int32_t*>(num_buckets);
+  a.dropped = static_cast<int32_t*>(dropped);
+  a.T = T;
+  a.C = C;
+  a.S = S;
+  const ChLayout l = ch_layout(n, T);
+  char* w = static_cast<char*>(work);
+  a.ctl = reinterpret_cast<unsigned long long*>(w);
+  a.agg = reinterpret_cast<long long*>(w + l.agg);
+  a.hist = reinterpret_cast<int32_t*>(w + l.hist);
+  for (int k = 0; k < 2; ++k) {
+    a.slot[k] = reinterpret_cast<int32_t*>(w + l.slot[k]);
+    a.pos[k] = reinterpret_cast<int32_t*>(w + l.pos[k]);
+  }
+  a.grp = reinterpret_cast<int32_t*>(w + l.grp);
+  a.gstart = reinterpret_cast<int32_t*>(w + l.gstart);
+  a.id = reinterpret_cast<int32_t*>(w + l.id);
+  return run_ch(a, stats, static_cast<cudaStream_t>(stream));
 }

@@ -79,7 +79,8 @@ T exchange(T x, int src) {
   std::memcpy(&out, &r, sizeof(T));
   return out;
 }
-// A block's __shared__ array number `slot` (at most 1024 bytes).
+// A block's __shared__ array number `slot` (at most kSharedBytes bytes).
+constexpr size_t kSharedBytes = 16384;
 template <class T>
 T* block_shared(int slot) {
   return reinterpret_cast<T*>(shared[blockIdx.x][slot].data());
@@ -100,7 +101,7 @@ cudaError_t run_grid(dim3 g, dim3 b, void** args) {
   warps.clear();
   for (unsigned i = 0; i < nt / 32; ++i) warps.push_back(new Warp());
   shared.assign(g.x, std::vector<std::vector<char>>(
-                         8, std::vector<char>(1024)));
+                         8, std::vector<char>(kSharedBytes)));
   std::vector<std::thread> ts;
   for (unsigned blk = 0; blk < g.x; ++blk) {
     for (unsigned t = 0; t < b.x; ++t) {

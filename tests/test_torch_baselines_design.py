@@ -22,10 +22,12 @@ whether the test fires there (HT doubles, HTI starts a migration) or the
 next segment begins.  Switched off, the key groups (or the last item's
 value) leave duplicates or stale values, and the conflict-heavy traces
 show it.
-CH's records hold each chain's tail and count; a key whose chain an earlier
-key of its window has goes alone, at the chain as the window left it; new
-buckets go in key order by a prefix count.  Switched off, the chain map
-leaves stale records in use."""
+CH places a batch in closed form: the positions sorted stably by chain slot
+(an LSD radix sort), each key at its chain's base (the tail's count as the
+batch begins, S for an empty chain) plus its rank among the batch's keys of
+its chain, and new buckets numbered in key order by a prefix count.
+Switched off (buckets numbered chain by chain, or ranks in another order
+than the keys'), the conflict-heavy trace shows it."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ from repro_torch.core import hashing
 EMPTY = 0xFFFFFFFF
 FREE = np.iinfo(np.int32).max
 EDGE = np.array([0, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
-KERNEL_WINDOW = 1024                 # CH: keys a window (kWindowKeys)
+KERNEL_DIGIT_BITS = 8                # CH: the radix sort's digit
 KERNEL_SEGMENT = 1 << 22             # open tables: positions a segment
 PROBE = 32
 NONE, KEY, OLD = 0, 1, 2             # record kinds (OLD: an old slot's entry)
@@ -327,12 +329,41 @@ class OpenEmulation:
 
 
 class CHEmulation:
-    def __init__(self, st, *, W: int, corrections: bool = True):
+    """CH state as numpy arrays, changed in place by the kernel's closed
+    form: the batch's positions sorted by chain slot (a stable LSD radix
+    sort of ``digit_bits`` a pass, each a counting sort), chain groups, each
+    chain's tail and count as the batch begins (an empty chain a full
+    phantom bucket: base S), position base + rank in its chain, and new
+    buckets numbered in key order.  ``order``: "key" (the kernel), "chain"
+    (new buckets numbered group by group, as a prefix count over the sorted
+    positions would) or "reversed" (a chain's ranks in reverse key order, as
+    an unstable sort may leave them)."""
+
+    def __init__(self, st, *, order: str = "key",
+                 digit_bits: int = KERNEL_DIGIT_BITS):
         self.a = {f: np.array(getattr(st, f)) for f in st._fields}
-        self.W, self.corrections = W, corrections
+        self.order, self.digit_bits = order, digit_bits
+        self.radix_passes = 0
 
     def arrays(self):
         return self.a
+
+    def sort(self, slot):
+        """The positions stably sorted by ``slot`` (T bits), one counting
+        sort a digit from the lowest."""
+        T = int(self.a["heads"].size).bit_length() - 1
+        perm = np.arange(slot.size)
+        for shift in range(0, T, self.digit_bits):
+            d = (slot[perm] >> shift) & ((1 << min(self.digit_bits,
+                                                   T - shift)) - 1)
+            at = np.concatenate([[0], np.cumsum(np.bincount(d))[:-1]])
+            out = np.empty_like(perm)
+            for k in range(perm.size):
+                out[at[d[k]]] = perm[k]
+                at[d[k]] += 1
+            perm = out
+            self.radix_passes += 1
+        return perm
 
     def insert(self, keys, vals):
         a = self.a
@@ -340,62 +371,65 @@ class CHEmulation:
         bk, bv = a["bucket_keys"], a["bucket_vals"]
         C, S = bk.shape
         T = int(heads.size).bit_length() - 1
-        nb, dropped = int(a["num_buckets"]), int(a["dropped"])
-        for base in range(0, keys.size, self.W):
-            recs, first = [], {}
-            for t in range(base, min(base + self.W, keys.size)):
-                key = int(keys[t])
-                slot = home_of(key, T)
-                b = int(heads[slot])
-                while b >= 0 and nxt[b] >= 0:
-                    b = int(nxt[b])
-                first.setdefault(slot, len(recs))
-                recs.append(dict(key=key, val=int(vals[t]), slot=slot, tail=b,
-                                 cnt=int(counts[b]) if b >= 0 else 0))
-            chain = {}                       # the window map: tail, count
-            for t, r in enumerate(recs):
-                r["dup"] = self.corrections and first[r["slot"]] < t
-                if first[r["slot"]] == t:
-                    chain[r["slot"]] = (r["tail"], r["cnt"])
-
-            def put(r, tail, cnt, nb):
-                if tail >= 0 and cnt < S:
-                    bk[tail, cnt], bv[tail, cnt] = r["key"], r["val"]
-                    counts[tail] = cnt + 1
-                    chain[r["slot"]] = (tail, cnt + 1)
-                    return 0, 0
-                if nb < C:
-                    bk[nb, 0], bv[nb, 0], counts[nb] = r["key"], r["val"], 1
-                    if tail < 0:
-                        heads[r["slot"]] = nb
-                    else:
-                        nxt[tail] = nb
-                    chain[r["slot"]] = (nb, 1)
-                    return 1, 0
-                return 0, 1
-
-            i = 0
-            while i < len(recs):
-                group = recs[i:i + 32]
-                stop = next((q for q, r in enumerate(group) if r["dup"]),
-                            len(group))
-                allocs = 0
-                for r in group[:stop]:            # the prefix, at once
-                    grew, lost = put(r, r["tail"], r["cnt"], nb + allocs)
-                    room = r["tail"] >= 0 and r["cnt"] < S
-                    allocs += int(not room)
-                got = max(0, min(allocs, C - nb))
-                nb, dropped = nb + got, dropped + allocs - got
-                if stop == len(group):
-                    i += len(group)
-                    continue
-                i += stop
-                r = recs[i]                       # alone, at its chain now
-                grew, lost = put(r, *chain[r["slot"]], nb)
-                nb, dropped = nb + grew, dropped + lost
-                i += 1
-        a["num_buckets"], a["dropped"] = np.int32(nb), np.int32(dropped)
-
+        n = keys.size
+        nb0 = int(a["num_buckets"])
+        slot = np.array([home_of(int(k), T) for k in keys], np.int64)
+        perm = self.sort(slot)                  # sorted position -> key
+        ss = slot[perm]
+        head = np.ones(n, bool)
+        head[1:] = ss[1:] != ss[:-1]
+        gstart = np.flatnonzero(head)           # a group's first position
+        grp = np.cumsum(head) - 1               # a sorted position's group
+        size = np.diff(np.append(gstart, n))
+        tail = np.empty(gstart.size, np.int64)  # one walk a group
+        for g, k0 in enumerate(gstart):
+            b = int(heads[ss[k0]])
+            while b >= 0 and nxt[b] >= 0:
+                b = int(nxt[b])
+            tail[g] = b
+        base = np.where(tail >= 0, counts[np.maximum(tail, 0)], S)
+        old = tail >= 0                          # the old tails' new counts
+        counts[tail[old]] = np.minimum(S, base[old] + size[old])
+        rank = np.arange(n) - gstart[grp]
+        if self.order == "reversed":
+            rank = size[grp] - 1 - rank
+        p = base[grp] + rank
+        q, j = p // S, p % S
+        opens = (q >= 1) & (j == 0)
+        bucket = np.zeros(n, np.int64)          # an opener's new bucket
+        if self.order == "chain":
+            bucket[opens] = nb0 + np.arange(int(opens.sum()))
+        else:                                   # a prefix count, key order
+            at_key = np.zeros(n, np.int64)
+            at_key[perm] = opens
+            before = np.cumsum(at_key) - at_key
+            bucket[opens] = nb0 + before[perm][opens]
+        # sorted position of a key's opener (rank r - j), of the previous one
+        opener = np.arange(n) - j
+        if self.order == "reversed":
+            opener = np.arange(n) + j
+        drops = 0
+        for k in range(n):
+            i, g, t = perm[k], grp[k], tail[grp[k]]
+            if q[k] == 0:
+                bk[t, j[k]], bv[t, j[k]] = keys[i], vals[i]
+                continue
+            b = bucket[opener[k]]
+            if b >= C:
+                drops += 1
+                continue
+            bk[b, j[k]], bv[b, j[k]] = keys[i], vals[i]
+            if j[k] == 0:
+                counts[b] = min(S, base[g] + size[g] - q[k] * S)
+                if q[k] > 1:
+                    prev = k - S if self.order != "reversed" else k + S
+                    nxt[bucket[prev]] = b
+                elif t >= 0:
+                    nxt[t] = b
+                else:
+                    heads[ss[k]] = b
+        a["num_buckets"] = np.int32(nb0 + min(int(opens.sum()), C - nb0))
+        a["dropped"] = np.int32(int(a["dropped"]) + drops)
 
 
 # -- running a trace against the JAX package ---------------------------------
@@ -429,11 +463,13 @@ def run_hti(keys, vals, batch, *, max_log2=None, init_log2=None, B, R,
     return True
 
 
-def run_ch(keys, vals, batch, *, table_log2, capacity, slots, W,
-           corrections=True):
+def run_ch(keys, vals, batch, *, table_log2, capacity, slots, order="key",
+           check=None):
     jst = jbl.ch_create(table_log2, capacity, slots)
-    emu = CHEmulation(jst, W=W, corrections=corrections)
+    emu = CHEmulation(jst, order=order)
     for i in range(0, keys.size, batch):
+        if check is not None and i == batch:
+            check(jst, emu)
         jst = jbl.ch_insert_many(jst, jnp.asarray(keys[i:i + batch]),
                                  jnp.asarray(vals[i:i + batch]))
         emu.insert(keys[i:i + batch], vals[i:i + batch])
@@ -523,25 +559,54 @@ def test_hti_windows_match_jax(rng, R):
                    max_log2=10, init_log2=4, B=8, R=R)
 
 
-@pytest.mark.parametrize("W", [8, KERNEL_WINDOW])
-def test_ch_windows_match_jax(rng, W):
-    """tests/test_baselines.py's chains (table_log2 4, 8 slots), capacity
-    running out, duplicate appends and the edge keys."""
-    keys = unique_keys(rng, 500)
-    assert run_ch(keys, np.arange(500, dtype=np.uint32), 125, table_log2=4,
-                  capacity=256, slots=8, W=W)
-    keys = with_edges(unique_keys(rng, 300))
-    keys = np.concatenate([keys, keys[:60]])
-    assert run_ch(keys, np.arange(keys.size, dtype=np.uint32), 90,
-                  table_log2=3, capacity=40, slots=8, W=W)
+def ch_trace(rng, case):
+    """(keys, batch, run_ch's settings, a check of the first batch's state)
+    of one CH trace."""
+    if case == "chains":           # tests/test_baselines.py's chains
+        return unique_keys(rng, 500), 125, dict(
+            table_log2=4, capacity=256, slots=8), None
+    if case == "edge_keys":        # capacity out, duplicates, edge keys
+        keys = with_edges(unique_keys(rng, 300))
+        return np.concatenate([keys, keys[:60]]), 90, dict(
+            table_log2=3, capacity=40, slots=8), None
+    if case == "one_chain":        # test_torch_baselines.same_ch_chain_keys
+        from test_torch_baselines import same_ch_chain_keys
+        return same_ch_chain_keys(rng, 240, 3), 120, dict(
+            table_log2=3, capacity=64, slots=4), \
+            lambda jst, emu: int(jst.num_buckets) == 30
+    if case == "capacity_mid_batch":   # 64 chains, 4-slot buckets, 100 room
+        return unique_keys(rng, 900), 600, dict(
+            table_log2=6, capacity=100, slots=4), \
+            lambda jst, emu: int(jst.num_buckets) == 100 \
+            and int(jst.dropped) > 0
+    assert case == "t17"           # three radix passes, one bit the last
+    return unique_keys(rng, 600), 300, dict(
+        table_log2=17, capacity=1024, slots=16), \
+        lambda jst, emu: emu.radix_passes == 3
+
+
+@pytest.mark.parametrize("case", ["chains", "edge_keys", "one_chain",
+                                  "capacity_mid_batch", "t17"])
+def test_ch_placement_matches_jax(rng, case):
+    """CH's closed-form placement on the chains of tests/test_baselines.py,
+    capacity running out with duplicate appends and the edge keys, one chain
+    taking whole batches, capacity running out inside a batch over many
+    chains, and 2^17 chains, all arrays bit for bit after every batch."""
+    keys, batch, kw, first = ch_trace(rng, case)
+    seen = []
+    assert run_ch(keys, np.arange(keys.size, dtype=np.uint32), batch,
+                  check=lambda jst, emu: seen.append(
+                      first is None or first(jst, emu)), **kw)
+    assert seen == [True]
 
 
 def conflict_heavy(rng):
     """One batch that re-inserts a third of its keys: in one segment (HT
     does not double; HTI starts one migration past the 358th key, which
     the batch drains) many keys have an earlier item of their own key
-    (HTI: a re-insert before its old copy migrates too), and in CH many
-    keys an earlier key of their chain in one window."""
+    (HTI: a re-insert before its old copy migrates too), and in CH (8
+    chains) every chain takes many keys and opens buckets in turn with the
+    others."""
     keys = unique_keys(rng, 300)
     return np.concatenate([keys, keys[::3]])
 
@@ -549,7 +614,8 @@ def conflict_heavy(rng):
 @pytest.mark.parametrize("corrections", [True, False])
 def test_conflict_heavy_traces_need_the_corrections(rng, corrections):
     """Without key groups (every item walks alone) the open tables end
-    with duplicate keys; without the chain map CH uses stale records."""
+    with duplicate keys; CH's buckets numbered chain by chain, or its ranks
+    in reverse key order, are not the reference's."""
     keys = conflict_heavy(rng)
     vals = rng.integers(0, 2**32 - 1, keys.size, dtype=np.uint32)
     groups = "last" if corrections else "none"
@@ -558,10 +624,12 @@ def test_conflict_heavy_traces_need_the_corrections(rng, corrections):
         run_ht(keys, vals, keys.size, max_log2=10, init_log2=10,
                R=KERNEL_SEGMENT, groups=groups, emu_out=emu),
         run_hti(keys, vals, keys.size, max_log2=11, init_log2=10, B=32,
-                R=KERNEL_SEGMENT, groups=groups),
-        run_ch(keys, vals, keys.size, table_log2=3, capacity=128, slots=8,
-               W=KERNEL_WINDOW, corrections=corrections)]
-    assert results == [corrections] * 3
+                R=KERNEL_SEGMENT, groups=groups)]
+    results += [run_ch(keys, vals, keys.size, table_log2=3, capacity=128,
+                       slots=8, order=order)
+                for order in (["key"] if corrections else ["chain",
+                                                           "reversed"])]
+    assert results == [corrections] * len(results)
     assert emu[0].outbid > 0        # settled items outbid by a later claim
 
 
@@ -726,7 +794,7 @@ def test_trigger_count_is_the_reference_test():
 
 def test_windows_match_the_kernel_source():
     """The constants the emulations mirror are the kernels' (in the
-    source): CH's window, the open tables' segment cap, probe window and
+    source): CH's radix digit, the open tables' segment cap, probe window and
     free owner, and the record kinds and states."""
     import re
     from pathlib import Path
@@ -739,7 +807,7 @@ def test_windows_match_the_kernel_source():
         m = re.search(rf"\b{name} = (\d+)(?:ll)?(?: << (\d+))?;", src)
         return int(m.group(1)) << int(m.group(2) or 0)
 
-    assert const("kWindowKeys") == KERNEL_WINDOW
+    assert const("kDigitBits") == KERNEL_DIGIT_BITS
     assert const("kSegment") == KERNEL_SEGMENT
     assert const("kProbe") == PROBE
     assert "kFree = INT_MAX" in src and FREE == 2**31 - 1

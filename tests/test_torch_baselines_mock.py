@@ -1,14 +1,16 @@
-"""HT's and HTI's insert kernel (``csrc/baselines_insert.cu``) compiled for
-the CPU with g++ against a stand-in CUDA runtime (``tests/cuda_mock/``:
-every CUDA thread an OS thread; ``__syncthreads``, the grid sync and the
-warp collectives barriers; atomics under one mutex), run through the real
-wrapper (``kernels/baselines_insert.py``) on CPU tensors and held bit for
-bit to the plain host loops on every state array after every batch.
+"""The baselines' insert kernels (``csrc/baselines_insert.cu``: HT's and
+HTI's ``place_kernel``, CH's ``ch_kernel``) compiled for the CPU with g++
+against a stand-in CUDA runtime (``tests/cuda_mock/``: every CUDA thread an
+OS thread; ``__syncthreads``, the grid sync and the warp collectives
+barriers; atomics under one mutex), run through the real wrapper
+(``kernels/baselines_insert.py``) on CPU tensors and held bit for bit to
+the plain host loops on every state array after every batch.
 
 It runs the source's own code at a small grid (3 blocks of 64 threads),
-with the source's segment cap and with 37 positions (many segments a run);
-it says nothing of speed, and only a build on the card checks what nvcc
-accepts (``chip_smoke.py`` (c) holds the card's kernel to the same loops).
+with the source's segment cap and with 37 positions (many segments a run;
+CH has no segments and runs the same in both); it says nothing of speed,
+and only a build on the card checks what nvcc accepts (``chip_smoke.py``
+(c) holds the card's kernels to the same loops).
 Each trace runs in a subprocess with a time limit, so a grid sync that a
 thread skips fails the test instead of hanging it."""
 import ctypes
@@ -33,6 +35,8 @@ cudaError_t launch(const void* f, dim3 g, dim3 b, void** args) {
     return mock::run_grid<PlaceArgs, place_kernel<false>>(g, b, args);
   if (f == reinterpret_cast<const void*>(place_kernel<true>))
     return mock::run_grid<PlaceArgs, place_kernel<true>>(g, b, args);
+  if (f == reinterpret_cast<const void*>(ch_kernel))
+    return mock::run_grid<ChArgs, ch_kernel>(g, b, args);
   return cudaErrorInvalidValue;
 }
 const int hooked = (mock::launch = launch, 0);
@@ -41,23 +45,23 @@ const int hooked = (mock::launch = launch, 0);
 
 
 def harness(segment) -> str:
-    """The source's open-table part: CH's kernel and launcher left out
-    (their launch syntax is CUDA's), blocks of THREADS threads, the
-    __shared__ arrays per block, and the launch hook."""
+    """The source with blocks of THREADS threads, the __shared__ arrays
+    per block, and the launch hook."""
     s = SOURCE.read_text()
-    s = s[:s.index("// ---- CH ----")] + s[s.index("// ---- launchers"):]
-    s = s[:s.index("// keys/vals (n,) u32; the CHState")]
-    s, k = re.subn(r"constexpr int kPlaceThreads = \d+;",
-                   f"constexpr int kPlaceThreads = {THREADS};", s)
-    assert k == 1
+    for name in ("kPlaceThreads", "kChThreads"):
+        s, k = re.subn(rf"constexpr int {name} = \d+;",
+                       f"constexpr int {name} = {THREADS};", s)
+        assert k == 1
     if segment is not None:
         s, k = re.subn(r"constexpr long long kSegment = [^;]+;",
                        f"constexpr long long kSegment = {segment};", s)
         assert k == 1
     slots = iter(range(8))
-    s = re.sub(r"__shared__ ([\w ]+?) (\w+)\[\d+\];",
-               lambda m: f"{m.group(1)}* {m.group(2)} = "
-                         f"mock::block_shared<{m.group(1)}>({next(slots)});",
+    s = re.sub(r"__shared__ ([\w ]+?) (\w+)\[([^\]]+)\];",
+               lambda m: f"static_assert(sizeof({m.group(1)}) * ({m.group(3)})"
+                         f" <= mock::kSharedBytes); {m.group(1)}* "
+                         f"{m.group(2)} = mock::block_shared<{m.group(1)}>"
+                         f"({next(slots)});",
                s)
     return s.replace('#include "common.cuh"',
                      f'#include "{SOURCE.with_name("common.cuh")}"') + HOOK
@@ -157,13 +161,47 @@ def _traces():
         return (bl.hti_create(4, 1, device="cpu"), split(tiny(), 7),
                 dict(migrate_batch=2))
 
+    def ch_until_capacity():
+        # 16 chains of 8-slot buckets until the capacity runs out, then
+        # drops; duplicate appends and the edge keys
+        k = keys_of(1600)
+        k = np.concatenate([k[:500], edge, k[:150], np.repeat(k[500:600], 2),
+                            k[600:], edge])
+        return bl.ch_create(4, 160, 8, device="cpu"), split(k, 400), {}
+
+    def ch_one_chain():
+        # every key of chain 0 (T 3): 300 keys a batch fill 75 buckets of 4
+        # slots, over the grid's blocks; the last batch adds other chains
+        k = same_home_keys(900, 3, 0)
+        last = np.concatenate([k[600:], keys_of(100)])
+        return (bl.ch_create(3, 400, 4, device="cpu"),
+                [k[:300], k[300:600], last[rng.permutation(last.size)]], {})
+
+    def ch_capacity_mid_batch():
+        # 64 chains take 800 keys (about 4 buckets of 4 each) with room for
+        # 100 buckets: the capacity runs out inside the first batch
+        return (bl.ch_create(6, 100, 4, device="cpu"),
+                [keys_of(800), keys_of(300)], {})
+
+    def ch_t17():
+        # 2^17 chains: three radix passes, the last one over one bit
+        return bl.ch_create(17, 4096, 16, device="cpu"), \
+            split(keys_of(3000), 1000), {}
+
+    def ch_t0():
+        # one chain (T 0): no radix pass
+        return bl.ch_create(0, 40, 4, device="cpu"), \
+            split(np.concatenate([tiny(), keys_of(150)]), 60), {}
+
     return {f.__name__: f for f in (ht_doublings, ht_lossy, ht_crowded,
                                     ht_tiny, hti_stale, hti_empty_pattern,
-                                    hti_tiny)}
+                                    hti_tiny, ch_until_capacity, ch_one_chain,
+                                    ch_capacity_mid_batch, ch_t17, ch_t0)}
 
 
 TRACES = ["ht_doublings", "ht_lossy", "ht_crowded", "ht_tiny", "hti_stale",
-          "hti_empty_pattern", "hti_tiny"]
+          "hti_empty_pattern", "hti_tiny", "ch_until_capacity",
+          "ch_one_chain", "ch_capacity_mid_batch", "ch_t17", "ch_t0"]
 
 
 def _run(lib_path: str, name: str) -> None:
@@ -175,32 +213,49 @@ def _run(lib_path: str, name: str) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import baselines_insert as kern
     lib = ctypes.CDLL(lib_path)
-    for fn in ("ht_insert_launch", "hti_insert_launch", "open_work_bytes"):
+    for fn in kern._SIGNATURES:
         getattr(lib, fn).argtypes = kern._SIGNATURES[fn]
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = ctypes.c_longlong \
+            if fn.endswith("_work_bytes") else ctypes.c_int
     _build.load = lambda name, signatures: lib
     _build.require_cuda = lambda name, *t: torch.device("cpu")
     _build.stream = lambda dev: 0
     st, batches, kw = _traces()[name]()
-    hti = name.startswith("hti")
     rng = np.random.default_rng(1)
+    seen = []
     for b, keys in enumerate(batches):
         vals = rng.integers(0, 2**32 - 1, keys.size, dtype=np.uint32)
         got = type(st)(*(t.clone() for t in st))
         want = type(st)(*(t.clone() for t in st))
         k = torch.from_numpy(keys.view(np.int32))
         v = torch.from_numpy(vals.view(np.int32))
-        if hti:
+        if name.startswith("hti"):
             kern.hti_insert_(got, k, v, 0.35, kw["migrate_batch"])
             bl._hti_insert_host(want, keys, vals, 0.35, kw["migrate_batch"])
-        else:
+        elif name.startswith("ht"):
             kern.ht_insert_(got, k, v, 0.35)
             bl._ht_insert_host(want, keys, vals, 0.35)
+        else:
+            kern.ch_insert_(got, k, v)
+            bl._ch_insert_host(want, keys, vals)
         for f, x, y in zip(type(st)._fields, got, want):
             assert torch.equal(hashing.storage_view(x),
                                hashing.storage_view(y)), \
                 f"{name}: batch {b}: {f} differs from the host loop"
         st = want
+        seen.append(st)
+    if name.startswith("ch"):
+        p = kern.passes()["ch_insert"]
+        checks = {"ch_until_capacity": int(st.dropped) > 0
+                  and int(st.num_buckets) == 160,
+                  "ch_one_chain": p["largest_group"] >= 300
+                  and p["longest_walk"] == 149
+                  and int(seen[0].num_buckets) == 75,
+                  "ch_capacity_mid_batch": int(seen[0].num_buckets) == 100
+                  and int(seen[0].dropped) > 0,
+                  "ch_t17": p["radix_passes"] == 9,
+                  "ch_t0": p["radix_passes"] == 0 and int(st.dropped) > 0}
+        assert checks[name], f"{name}: the trace missed its case"
     print("passes", kern.passes())
 
 
