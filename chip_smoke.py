@@ -41,11 +41,14 @@ Phases, each of which raises on failure (exit code 1):
       paged decode attention at qwen3_4b's and gemma2_27b's KV widths
       (softcap 50, window 4096 over an 8192 context, on both routes), at
       G = 3, hd 64 and at the split kernel's edges (contexts of SPLIT - 1,
-      SPLIT, SPLIT + 1 and S_cap): contexts off the tile, 0 and S_cap, a -1
-      table entry and an all -1 row, strided (as ``ops.decode_*`` pass
-      them) and contiguous inputs, the self row (the current token's K/V)
-      folded in, and the shortcut route bitwise equal to the paged route
-      over the same rows in shuffled blocks; at each shape the plain
+      SPLIT, SPLIT + 1 and S_cap), at (j)'s decode layers (hymba_1_5b:
+      G 5, hd 64, window 1024 and a global layer; qwen2_moe_a2_7b: 16 KV
+      heads, G 1, hd 128; S_cap 2112): contexts off the tile, 0 and
+      S_cap, a -1 table entry and an all -1 row, strided (as
+      ``ops.decode_*`` pass them) and contiguous inputs, the self row
+      (the current token's K/V) folded in, and the shortcut route bitwise
+      equal to the paged route over the same rows in shuffled blocks; at
+      each shape the plain
       versions of wrong kernels (the last token dropped, a 64-token chunk
       skipped, the window edge moved by one, the self row left out) are
       shown to go past that limit; the flash kernel in float32 and bfloat16
@@ -54,8 +57,10 @@ Phases, each of which raises on failure (exit code 1):
       256, contiguous and in the model layout through ``ops.mha_forward``,
       then in bfloat16 at qwen3_4b's prefill layer shape (8 x 2048 tokens),
       at gemma2_27b's widths (window 4096, softcap 50, 8192 tokens), at
-      hymba_1_5b's (G 5, hd 64, window 1024 over 1500 tokens) and at
-      musicgen_medium's (G 1, hd 64, 1000 tokens), each beside the plain
+      hymba_1_5b's (G 5, hd 64, window 1024 over 1500 tokens, and its
+      global layers), at musicgen_medium's (G 1, hd 64, 1000 tokens) and at
+      qwen2_moe_a2_7b's prefill layer (16 heads, G 1, hd 128, 8 x 2048
+      tokens), each beside the plain
       versions of wrong kernels (the diagonal token dropped, q_offset off
       by one, the window edge moved by one); each flash line names the
       kernel that ran: ``tensor-core`` (bfloat16 at hd 64, 128, 256) or
@@ -145,15 +150,46 @@ Phases, each of which raises on failure (exit code 1):
       grid; CH's, with its radix passes, chain groups and the largest,
       buckets opened, the grid), and HT's batch 1, HTI's batch 3 and CH's
       batch 1 held to the plain loop too; and
-      Fig. 7's five rows, EH and Shortcut-EH from (d) and (e).
+      Fig. 7's five rows, EH and Shortcut-EH from (d) and (e);
+  (j) the MoE, SSM and hybrid families at full width and depth in
+      bfloat16, weights drawn from --seed on the card, each served as (h)
+      serves qwen3_4b (8 prompts of 2048 seeded tokens, 32 greedy steps,
+      S_cap 2112): qwen2_moe_a2_7b (24 layers, 60 experts top-4 x 1408 and
+      4 shared, 14.3 B parameters) on the shortcut and paged routes,
+      hymba_1_5b (32 layers, attention G 5 x 64 with a 1024 window but
+      layers 0, 15 and 31, and an SSM in parallel) and mamba2_370m (48 SSM
+      layers, no attention) on the shortcut route.  Checks: flash launches
+      per prefill and decode-kernel launches per step 24 / 48, 32 / 64 and
+      0 / 0 and no other kernel of the port; qwen2_moe's routes give
+      identical tokens and last-step logits equal bit for bit.  Then a
+      float32 run of the same path (weights drawn from --seed in float32;
+      qwen2_moe on 2 prompts) holds its last-step decode logits within
+      each model's ``family_limit`` (relative RMS) of a float32 full
+      forward over prompt + fed tokens, and wrong decodes past it (the
+      rope position off by one; a zeroed SSM state; the MoE's top-k
+      weights left un-renormalized): in bfloat16 these random-weight
+      models move their logits under one rounding about as much as under
+      a wrong decode (logged).  qwen2_moe is served at its published
+      capacity factor 1.25, whose full forward at 2080 tokens can drop
+      pairs, so its checks run at capacity factor E / top_k (no pair
+      drops), the full forward taking the experts the prefill and the
+      steps chose; the run prints the pairs the served prefill dropped and
+      the top-k choices that differ between the decode steps and the full
+      forward (float32, and bfloat16 ties in an untimed bfloat16 run at
+      that capacity).  Reports per
+      model prefill ms and tokens/s, decode ms per step per route (host
+      clock and CUDA events), one profiler trace of a prefill and of a step
+      (device busy, idle share, the MoE or SSM span's share), peak memory,
+      and the flash and decode kernels at the model's layer shapes.
 
 Each phase's wall seconds go on a line of their own.  The flat index is
-dropped before (f), the sharded one before (g), the KV layer before (h)
-and each table of (i) before the next, so each path reports its own peak
-memory.  The last three lines of standard output are the ``{"kernels":
-[...]}`` JSON (twelve kernels), the
-``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
-``src/repro_torch`` beside it, it exits non-zero and prints no result.
+dropped before (f), the sharded one before (g), the KV layer before (h),
+each table of (i) before the next and each model of (j) before the next,
+so each path reports its own peak memory.  The last three lines of
+standard output are the ``{"kernels": [...]}`` JSON (twelve kernels), the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA,
+or without ``src/repro_torch`` beside it, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -865,7 +901,16 @@ def phase_attention(torch, np, seed: int) -> None:
         ("gemma2_27b widths", 2, 16, 2, 128, 8192, [8192, 5001], 4096, 50.0),
         ("G=3, hd=64", 2, 1, 3, 64, 130, [130, 1], None, 7.0),
         ("split edges", 4, 8, 4, 128, 3 * sp + 40,
-         [sp - 1, sp, sp + 1, 3 * sp + 40], None, None)]
+         [sp - 1, sp, sp + 1, 3 * sp + 40], None, None),
+        # (j)'s decode layers: hymba_1_5b (25 query heads over 5 KV heads x
+        # 64; window 1024 but layers 0, 15 and 31) and qwen2_moe_a2_7b (16
+        # heads, no GQA, x 128), at (j)'s S_cap
+        ("hymba_1_5b widths, window 1024", 2, 5, 5, 64, 2112, [2080, 700],
+         1024, None),
+        ("hymba_1_5b widths, global layer", 2, 5, 5, 64, 2112, [2080, 1],
+         None, None),
+        ("qwen2_moe_a2_7b widths", 2, 16, 1, 128, 2112, [2080, 1500], None,
+         None)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, KV, G, hd, S, ctx, window, softcap in cases:
             def randn(*shape):
@@ -986,6 +1031,11 @@ FLASH_MODEL_CASES = [
     ("gemma2_27b widths", (1, 16, 2, 8192, 128), 8192, 4096, 50.0, None),
     ("hymba_1_5b widths", (1, 5, 5, 1500, 64), 1500, 1024, None, None),
     ("musicgen_medium widths", (2, 24, 1, 1000, 64), 1000, None, None, None),
+    # (j)'s prefill layers: hymba_1_5b's global layers (0, 15, 31) and
+    # qwen2_moe_a2_7b's (16 heads x 128 without GQA, 8 x 2048 tokens)
+    ("hymba_1_5b global layer", (1, 5, 5, 1500, 64), 1500, None, None, None),
+    ("qwen2_moe_a2_7b prefill layer", (8, 16, 1, 2048, 128), 2048, None, None,
+     2),
 ]
 
 
@@ -2017,23 +2067,47 @@ def report_kv(kres, smi, kernels) -> None:
 DECODE_KERNELS = ("split_kernel", "combine_kernel")
 
 
-def profiled(torch, fn) -> tuple:
+def profiled(torch, fn, spans=()) -> tuple:
     """``fn()`` once under ``torch.profiler``: its result, the device's busy
     ms (the summed durations of the kernels and copies it ran, which one
-    stream runs one at a time), their count, and the ms of those that are
-    decode-attention kernels (``DECODE_KERNELS``); (result, None, 0, None)
-    when the trace holds no device events."""
+    stream runs one at a time), their count, the ms of those that are
+    decode-attention kernels (``DECODE_KERNELS``), and per name in
+    ``spans`` (``record_function`` spans of the port, e.g. ``moe.SPAN``)
+    the device ms of the kernels that ran inside the span's device-side
+    annotations (each from the first to the last kernel of one range; one
+    stream runs nothing else between them), 0 when the trace has none of
+    them; (result, None, 0, None, {}) when the trace holds no device
+    events."""
+    import bisect
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    # a span's own device-side annotation is no kernel: left out of busy
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name not in spans
+           and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     attn = sum(e.time_range.elapsed_us() for e in dev
                if any(k in e.name for k in DECODE_KERNELS)) / 1e3
-    return out, (busy if dev else None), len(dev), (attn if dev else None)
+
+    def inside_ms(name):
+        marks = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == DeviceType.CUDA and e.name == name)
+        starts = [m[0] for m in marks]
+        us = 0
+        for e in dev:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.end <= marks[i][1]:
+                us += e.time_range.elapsed_us()
+        return us / 1e3
+    span_ms = {name: inside_ms(name) for name in spans}
+    if not dev:
+        return out, None, 0, None, {}
+    return out, busy, len(dev), attn, span_ms
 
 
 def rel_rms(torch, got, want) -> float:
@@ -2054,16 +2128,14 @@ def phase_model(torch, args, timer) -> dict:
     with the rope position off by one past it), and 36 flash launches per
     prefill.  Returns what its report and the flash row need."""
     from repro_torch.configs import get
-    from repro_torch.kernels import _build, _decode
+    from repro_torch.kernels import _decode
     from repro_torch.kvcache import paged_cache as pc
     from repro_torch.models import attention as attn
     from repro_torch.models import model as M
-    from repro_torch.runtime import serve
     dev = torch.device("cuda")
     c = MODEL_CONFIG
     cfg = get(c["arch"])
-    B, P, steps, bs, s_cap = (c[k] for k in ("batch", "prompt", "steps",
-                                             "block", "s_cap"))
+    B, P, steps = c["batch"], c["prompt"], c["steps"]
     res = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2080,64 +2152,8 @@ def phase_model(torch, args, timer) -> dict:
         f"{cfg.d_ff}, vocab {cfg.vocab_size}; {res['n_params']} parameters "
         f"(bfloat16) drawn on the card in {res['init_s']:.3f} s")
 
-    # prefill three times: the first warms up, the second is timed, the
-    # third traced; all are counted
-    prefill = serve.make_prefill_step(cfg, s_cap, torch.bfloat16)
-    _build.reset_launches()
-    times = []
-    for i in range(3):
-        state = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == 2:
-            (logits, state), *res["prefill_trace"] = profiled(
-                torch, lambda: prefill(params, {"tokens": toks}))
-        else:
-            logits, state = prefill(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    res["prefill_s"] = times
-    launches = _build.launches()
-    res["launches"] = launches
-    assert launches.get("flash_attention", 0) == 3 * cfg.num_layers, \
-        f"(h) flash launches {launches}, expected {cfg.num_layers} per prefill"
-    assert set(launches) == {"flash_attention"}, launches
-    assert torch.isfinite(logits.float()).all(), "(h) prefill logits"
-    assert logits.shape == (B, cfg.vocab_size)
-    assert state.view_k.shape == (cfg.num_layers, B, cfg.num_kv_heads,
-                                  s_cap, cfg.resolved_head_dim)
-    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
-
-    # the paged cache, written from the prefill's keys and values
-    MB = s_cap // bs
-    cache = pc.cache_create(cfg.num_layers, B * MB, bs, cfg.num_kv_heads,
-                            cfg.resolved_head_dim, B, MB, torch.bfloat16,
-                            device=dev)
-    ids = torch.arange(B, device=dev)
-    cache = pc.write_prefill(cache, ids, state.view_k[:, :, :, :P]
-                             .transpose(2, 3), state.view_v[:, :, :, :P]
-                             .transpose(2, 3))
-
-    def last_logits(route, tok, ctx_state, positions=None):
-        """What the step consumes at the last step, and its logits: the
-        route's context through ``decode_step``, as the step computes it."""
-        if route == "shortcut":
-            ctx = M.LayerCache(k=ctx_state.view_k, v=ctx_state.view_v)
-            inc = ctx_state.ctx_len + 1
-        else:
-            ctx = M.PagedContext(k_pool=ctx_state.k_pool,
-                                 v_pool=ctx_state.v_pool,
-                                 block_tables=ctx_state.block_tables[ids])
-            inc = ctx_state.seq_lens[ids] + 1
-        if positions is not None:
-            positions = inc - 1 + positions
-        return M.decode_step(params, cfg, tok, ctx, inc,
-                             positions=positions)[0]
-
-    routes = {}
-    step_fns = {"shortcut": serve.make_serve_step(cfg),
-                "paged": serve.make_paged_serve_step(cfg)}
-    # the steps must not materialize a context: count gathers while they run
+    # the steps must not materialize a context: count gathers while the
+    # server runs
     gathers = {"n": 0}
 
     def spy(fn):
@@ -2149,58 +2165,30 @@ def phase_model(torch, args, timer) -> dict:
     originals = [getattr(mod, name) for mod, name in spied]
     for mod, name in spied:
         setattr(mod, name, spy(getattr(mod, name)))
-    per_call = _decode.KERNELS_PER_CALL * cfg.num_layers
-    for route, step in step_fns.items():
-        st = state if route == "shortcut" else cache
-        kernel = route + "_attention"
-        tok, fed, secs, ev_ms = tok0, [tok0], [], []
-        for i in range(steps):
-            if i == steps - 1:
-                routes[route + "_logits"] = last_logits(route, tok, st)
-                if route == "shortcut":
-                    routes["wrong_logits"] = last_logits(route, tok, st, 1)
-            def run():
-                if route == "shortcut":
-                    return step(params, st, tok)
-                return step(params, st, tok, ids)
-            torch.cuda.synchronize()
-            _build.reset_launches()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            ev0.record()
-            if i == 1:      # one step traced (left out of the timed mean)
-                (tok, st), *res[route + "_trace"] = profiled(torch, run)
-            else:
-                tok, st = run()
-            ev1.record()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            ev_ms.append(ev0.elapsed_time(ev1))
-            got = _build.launches()
-            assert got == {kernel: per_call}, \
-                f"(h) {route} step {i}: launches {got}, expected " \
-                f"{{{kernel!r}: {per_call}}}"
-            fed.append(tok)
-        assert torch.equal(
-            tok, torch.argmax(routes[route + "_logits"], dim=-1).to(tok.dtype)
-        ), f"(h) {route}: the step's token is not its logits' argmax"
-        routes[route] = torch.stack(fed, dim=1)
-        res[route + "_step_s"] = secs
-        res[route + "_step_ev"] = ev_ms
-        if route == "paged":
-            cache = st
-        del st
-    for (mod, name), fn in zip(spied, originals):
-        setattr(mod, name, fn)
+    try:
+        served = serve_family(torch, cfg, params, toks, ("shortcut", "paged"),
+                              (), torch.bfloat16, timed=True,
+                              variants=("rope position off by one",), c=c)
+    finally:
+        for (mod, name), fn in zip(spied, originals):
+            setattr(mod, name, fn)
     assert gathers["n"] == 0, \
         f"(h) the decode steps gathered a context {gathers['n']} times"
-    res["decode_launches"] = per_call
+    assert served["prefill_launches"] == cfg.num_layers
+    assert served["decode_launches"] == \
+        _decode.KERNELS_PER_CALL * cfg.num_layers
+    for k in ("prefill_s", "prefill_trace", "decode_launches",
+              "shortcut_step_s", "shortcut_step_ev", "shortcut_trace",
+              "paged_step_s", "paged_step_ev", "paged_trace"):
+        res[k] = served[k]
+    res["launches"] = {"flash_attention": 3 * served["prefill_launches"]}
+    routes = {k: served[k] for k in ("shortcut", "paged", "shortcut_logits",
+                                     "paged_logits")}
+    routes["wrong_logits"] = served["wrong_logits"]["rope position off by one"]
     assert torch.equal(routes["shortcut"], routes["paged"]), \
         "(h) the routes decoded different tokens"
     assert torch.equal(routes["shortcut_logits"], routes["paged_logits"]), \
         "(h) the routes' last-step logits differ in bits"
-    assert int(cache.seq_lens.min()) == P + steps
     res["route_logit_diff"] = float((routes["shortcut_logits"].float()
                                      - routes["paged_logits"].float())
                                     .abs().max())
@@ -2209,9 +2197,8 @@ def phase_model(torch, args, timer) -> dict:
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
 
     # decode against the full forward over prompt + the fed tokens
-    del state, cache
-    full = torch.cat([toks, routes["shortcut"][:, :steps].long()], dim=1)
-    want, _ = M.prefill_forward(params, cfg, {"tokens": full})
+    want, _ = full_forward(torch, cfg, params, toks,
+                           routes["shortcut"][:, :steps])
     res["errors"] = {k: rel_rms(torch, routes[k + "_logits"], want)
                      for k in ("shortcut", "paged", "wrong")}
     res["want_rms"] = float(want.float().square().mean().sqrt())
@@ -2236,16 +2223,17 @@ def _leaves(tree):
             yield v
 
 
-def measure_flash(torch, mres, timer) -> tuple:
-    """The flash kernel at (h)'s prefill layer shape, on seeded bfloat16
-    operands in the model layout: its time, the plain version's and
-    ``scaled_dot_product_attention``'s (causal, GQA) on the same tensors,
-    the largest difference from plain, and its bound."""
+def measure_flash(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> tuple:
+    """The flash kernel at the prefill layer shape of ``phase``'s model
+    (``mres["cfg"]``; batch and prompt from ``c``), causal without a window,
+    on seeded bfloat16 operands in the model layout: its time, the plain
+    version's and ``scaled_dot_product_attention``'s (causal, GQA) on the
+    same tensors, the largest difference from plain, and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import kernel_path
     cfg = mres["cfg"]
-    B, S = MODEL_CONFIG["batch"], MODEL_CONFIG["prompt"]
+    B, S = c["batch"], c["prompt"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -2265,7 +2253,7 @@ def measure_flash(torch, mres, timer) -> tuple:
     flops = 4 * B * H * hd * S * (S + 1) // 2
     bytes_ = 2 * (qm.nbytes + km.nbytes)        # q, k, v read; out written
     bound = max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3
-    log(f"(h) flash kernel ({kernel_path(qm.dtype, hd)}) at the prefill "
+    log(f"({phase}) flash kernel ({kernel_path(qm.dtype, hd)}) at the prefill "
         f"layer shape (q {tuple(qm.shape)}, "
         f"k/v {tuple(km.shape)}, bfloat16): {ms:.4f} ms per layer call; "
         f"plain {plain_ms:.4f} ms; scaled_dot_product_attention(is_causal, "
@@ -2279,9 +2267,10 @@ def measure_flash(torch, mres, timer) -> tuple:
             ms, plain_ms, bytes_, err, lib_ms, flops)
 
 
-def measure_decode(torch, mres, timer) -> None:
-    """The two decode kernels at (h)'s decode layer shape, on seeded
-    bfloat16 operands: 8 sequences x 8 kv heads (G 4, hd 128) of
+def measure_decode(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> None:
+    """The two decode kernels at the decode layer shape of ``phase``'s
+    model (``mres["cfg"]``; (h): 8 sequences x 8 kv heads, G 4, hd 128),
+    without a window, on seeded bfloat16 operands: ``c``'s batch of
     prompt + steps/2 old tokens in an S_cap-2112 view and, for the paged
     kernel, the same rows in shuffled 16-token blocks, the self row folded
     in.  Logs each kernel's time, its plain version's, its bound and, for
@@ -2290,7 +2279,7 @@ def measure_decode(torch, mres, timer) -> None:
     split lengths."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    cfg, c = mres["cfg"], MODEL_CONFIG
+    cfg = mres["cfg"]
     B, s_cap, bs = c["batch"], c["s_cap"], c["block"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     G, MB = H // KV, s_cap // bs
@@ -2316,7 +2305,7 @@ def measure_decode(torch, mres, timer) -> None:
     ms_s, short = timer(lambda: ops.decode_shortcut(q, vk, vv, lens, **new))
     ms_p, paged = timer(lambda: ops.decode_paged(q, kp, vp, tables, lens,
                                                  **new))
-    assert torch.equal(short, paged), "(h) decode layer: routes differ"
+    assert torch.equal(short, paged), f"({phase}) decode layer: routes differ"
     plain_s, want = timer(lambda: ref.decode_attention_ref(
         qk, vk.transpose(1, 2), vv.transpose(1, 2), lens, **new).reshape(
             B, H, hd), reps=3, warmup=1)
@@ -2335,25 +2324,26 @@ def measure_decode(torch, mres, timer) -> None:
     live = B * (n_old + 1)
     io = live * KV * hd * 2 * 2 + 2 * q.nbytes       # K, V rows; q and out
     nblk = B * -(-n_old // bs)
-    launches = {k: mres["decode_launches"] * c["steps"]
-                for k in ("shortcut_attention", "paged_attention")}
-    log(f"(h) decode kernels at the decode layer shape (q {tuple(q.shape)}, "
+    launches = {r + "_attention": mres["decode_launches"] * c["steps"]
+                for r in mres.get("routes", ("shortcut", "paged"))}
+    log(f"({phase}) decode kernels at the decode layer shape (q "
+        f"{tuple(q.shape)}, "
         f"{n_old} old tokens + the self row per sequence, S_cap {s_cap}, "
         f"block {bs}; launches: the {c['steps']} decode steps): shortcut == "
         f"paged bit for bit; scaled_dot_product_attention |err| / limit "
         f"{lib_ratio:.3g}")
     _row("shortcut_attention", "", "", launches, ms_s, plain_s, io + 4 * B,
-         err_s, library_ms=lib_ms, phase="h")
+         err_s, library_ms=lib_ms, phase=phase)
     _row("paged_attention", "", "", launches, ms_p, plain_p,
-         io + 4 * nblk + 4 * B, err_p, phase="h")
-    log("(h) decode layer shape, profiler: " + "; ".join((
+         io + 4 * nblk + 4 * B, err_p, phase=phase)
+    log(f"({phase}) decode layer shape, profiler: " + "; ".join((
         device_line("shortcut_attention", *device_ms(
             torch, lambda: ops.decode_shortcut(q, vk, vv, lens, **new))),
         device_line("paged_attention", *device_ms(
             torch, lambda: ops.decode_paged(q, kp, vp, tables, lens,
                                             **new))))))
-    log("(h) decode layer shape, split kernel + combine at each split length "
-        "(CUDA events, turns a b b a): " + split_line(split_times(
+    log(f"({phase}) decode layer shape, split kernel + combine at each "
+        "split length (CUDA events, turns a b b a): " + split_line(split_times(
             torch, timer, qk, vk.transpose(1, 2), vv.transpose(1, 2),
             kp.transpose(1, 2), vp.transpose(1, 2), tables, lens, kn, vn)))
 
@@ -2364,15 +2354,19 @@ def median(xs) -> float:
     return ys[n // 2] if n % 2 else (ys[n // 2 - 1] + ys[n // 2]) / 2
 
 
-def traced(busy, n, attn, wall_ms) -> str:
+def traced(busy, n, attn, spans, wall_ms) -> str:
     """A trace's device time against the untraced wall time of the same
     work (tracing itself costs seconds of host time), with the part in the
-    decode-attention kernels."""
+    decode-attention kernels and in each span of ``profiled``."""
     if busy is None:
         return "no device events in the trace (device time not measured)"
+    parts = "".join(
+        f"; {name} {ms:.4f} ms ({100 * ms / busy:.1f}% of busy)" if ms
+        else f"; {name} not measured (no device annotation of the span)"
+        for name, ms in spans.items())
     return (f"device busy {busy:.4f} ms ({attn:.4f} ms in the decode-"
-            f"attention kernels, {busy - attn:.4f} ms in the rest), {n} "
-            f"kernels and copies; {100 * (1 - busy / wall_ms):.1f}% idle "
+            f"attention kernels, {busy - attn:.4f} ms in the rest{parts}), "
+            f"{n} kernels and copies; {100 * (1 - busy / wall_ms):.1f}% idle "
             f"against the untraced {wall_ms:.4f} ms")
 
 
@@ -2413,6 +2407,529 @@ def report_model(mres, smi, kernels, row) -> None:
     kernels.append(_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                         replaces, mres["launches"], ms, plain_ms, bytes_, err,
                         library_ms=lib_ms, phase="h", flops=flops))
+
+
+# (j): the MoE, SSM and hybrid families (src/repro_torch/configs/) at full
+# width and depth, weights drawn from --seed on the card, each a small
+# server answering 8 requests in bfloat16 as (h)'s: 8 prompts of 2048 seeded
+# tokens, 32 greedy tokens, S_cap 2112.  Per model: its routes (the paged
+# route serves attention-only models), the port's kernel launches per
+# prefill (flash, one an attention layer) and per decode step (the decode
+# kernels' two an attention layer; mamba2 has no attention, so no kernel of
+# the port runs in it), and the prompts its float32 check run holds
+# (qwen2_moe's float32 weights take 57 GB)
+FAMILY_CONFIG = dict(batch=8, prompt=2048, steps=32, block=16, s_cap=2112)
+FAMILY_MODELS = {
+    "qwen2_moe_a2_7b": (("shortcut", "paged"), 24, 48, 2),
+    "hymba_1_5b": (("shortcut",), 32, 64, 8),
+    "mamba2_370m": (("shortcut",), 0, 0, 8),
+}
+# (j): bfloat16 decode logits cannot be held to a full forward at these
+# depths with random weights: the models amplify a rounding, so that one
+# bfloat16 ulp of the embedding moves their logits by about as much as the
+# decode differs (the run measures both).  So the check holds a float32 run
+# of the same path (prefill, the decode steps, the decode kernels) to a
+# float32 full forward over prompt + fed tokens.  Its limit, as
+# LOGIT_LIMIT's: a rounding moves an activation by 2^-24 / sqrt(3) (RMS),
+# n of them about sqrt(n) times that, each amplified at most as a change of
+# the embedding is (the run measures that gain, ``sensitivity``), and three
+# times that.  Roundings a layer (PERF.md counts them): qwen2_moe 20
+# (attention 6, the routed experts and the shared MLP 14), hymba 24
+# (attention 6, SSM 12, MLP 4, the mix and the residual 2), mamba2 13 (SSM
+# 12, the residual).  A decode with the rope position off by one, from a
+# zeroed SSM state, or with the top-k weights left un-renormalized goes
+# past it
+FAMILY_ROUNDINGS = {"qwen2_moe_a2_7b": 20, "hymba_1_5b": 24,
+                    "mamba2_370m": 13}
+F32_ROUNDING = 2 ** -24 / 3 ** 0.5
+# (j): the largest share of the float32 decode steps' top-k choices that
+# may differ from the full forward's own at the same position: ties at
+# float32 rounding flip far fewer (the run prints them); a decode router
+# that reads other inputs or other weights flips most
+FLIP_SHARE_LIMIT = 0.01
+
+
+def family_limit(arch: str, layers: int, sensitivity: float) -> float:
+    return 3 * (FAMILY_ROUNDINGS[arch] * layers) ** 0.5 * F32_ROUNDING \
+        * sensitivity
+
+
+class RouteLog:
+    """While active, records the top-k choices (top_i) the port's MoE
+    router (``moe.route``) makes at each call; with ``renormalize=False`` it
+    hands the layer the top-k probabilities as they are (a wrong MoE); with
+    ``force`` (one (B, S, K) tensor per call) the layer takes those experts
+    instead, weighted by its own probabilities, renormalized."""
+
+    def __init__(self, moe, renormalize: bool = True, force=None):
+        self.moe, self.renormalize, self.force = moe, renormalize, force
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = self.moe.route
+        self.moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def route(self, p, x, cfg):
+        probs, top_w, top_i = self.orig(p, x, cfg)
+        self.calls.append(top_i)
+        if self.force is not None:
+            top_i = self.force[len(self.calls) - 1]
+            top_w = probs.gather(-1, top_i)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        elif not self.renormalize:
+            top_w = probs.gather(-1, top_i)
+        return probs, top_w, top_i
+
+
+def dropped_pairs(torch, calls, E: int, C: int) -> list:
+    """Per MoE call (a layer), the (token, choice) pairs past their expert's
+    capacity ``C``, summed over the batch rows."""
+    out = []
+    for top_i in calls:
+        flat = top_i.reshape(top_i.shape[0], -1)
+        counts = torch.zeros((flat.shape[0], E), dtype=torch.int64,
+                             device=flat.device)
+        counts.scatter_add_(1, flat, torch.ones_like(flat))
+        out.append(int((counts - C).clamp_min(0).sum()))
+    return out
+
+
+def routing_flips(a, b) -> int:
+    """Choices in ``a`` (..., K) absent from the same row's ``b``."""
+    return int((~(a[..., :, None] == b[..., None, :]).any(-1)).sum())
+
+
+def fed_flips(step_routes, own, L: int, P: int, steps: int) -> int:
+    """The decode steps' top-k choices (``step_routes``: a call a layer, a
+    step after another) absent from a full forward's own (``own``: a
+    (B, P + steps, K) call a layer) at the same position."""
+    assert len(own) == L and len(step_routes) == steps * L
+    return sum(routing_flips(step_routes[t * L + j][:, 0], own[j][:, P + t])
+               for t in range(steps) for j in range(L))
+
+
+def bumped_embed(torch, params, seed: int) -> float:
+    """Moves half the embedding's entries (seeded) away from zero by one ulp
+    of its dtype, in place; returns the relative size of the change."""
+    e = params["embed"]
+    gen = torch.Generator(device=e.device).manual_seed(seed)
+    pick = torch.rand(e.shape, generator=gen, device=e.device) < 0.5
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[e.dtype]
+    old = e.to(torch.float32, copy=True)
+    e.view(ints).add_(pick.to(ints))
+    return float((e.float() - old).norm() / old.norm())
+
+
+def serve_family(torch, cfg, params, toks, routes, spans, dtype,
+                 timed: bool, variants=(), log_routes: bool = False,
+                 c=FAMILY_CONFIG) -> dict:
+    """The server run of one model ((h), (j)): ``make_prefill_step`` (three
+    calls when ``timed``: a warm-up, a timed one and a traced one; else
+    one), then ``c``'s steps of greedy decode per route (timed: host clock
+    and CUDA events a step, step 2 traced; the paged route over a cache
+    written from the prefill).  Each prefill and each step is held to its
+    launches of the port's kernels.  At the last step the route's logits
+    as the step computes them, and on the shortcut route those of the wrong
+    ``variants``.  With ``log_routes``, the MoE router's choices in the
+    first prefill and in each route's steps."""
+    from repro_torch.kernels import _build, _decode
+    from repro_torch.kvcache import paged_cache as pc
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, ssm
+    from repro_torch.runtime import serve
+    dev = toks.device
+    P, steps, bs, s_cap = (c[k] for k in ("prompt", "steps", "block",
+                                          "s_cap"))
+    B, L = toks.shape[0], cfg.num_layers
+    flash_n = L if cfg.has_attention else 0
+    decode_n = _decode.KERNELS_PER_CALL * L if cfg.has_attention else 0
+    out = {"prefill_s": [], "prefill_routes": []}
+    prefill = serve.make_prefill_step(cfg, s_cap, dtype)
+    calls = 3 if timed else 1
+    _build.reset_launches()
+    for i in range(calls):
+        state = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 2:
+            (logits, state), *out["prefill_trace"] = profiled(
+                torch, lambda: prefill(params, {"tokens": toks}), spans)
+        elif i == 0 and log_routes:
+            with RouteLog(moe) as rl:
+                logits, state = prefill(params, {"tokens": toks})
+            out["prefill_routes"] = rl.calls
+        else:
+            logits, state = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        out["prefill_s"].append(time.perf_counter() - t0)
+    want = {"flash_attention": calls * flash_n} if flash_n else {}
+    got = _build.launches()
+    assert got == want, f"(j) {cfg.name}: prefill launches {got}, " \
+        f"expected {want}"
+    out["prefill_launches"] = flash_n
+    assert torch.isfinite(logits.float()).all(), f"(j) {cfg.name}: prefill"
+    assert logits.shape == (B, cfg.vocab_size)
+    if cfg.has_attention:
+        assert state.view_k.shape == (L, B, cfg.num_kv_heads, s_cap,
+                                      cfg.resolved_head_dim)
+    if cfg.has_ssm:
+        assert state.ssm_state.dtype == torch.float32
+        assert state.ssm_conv.shape == (L, B, cfg.ssm_conv - 1,
+                                        cfg.ssm_d_inner + 2 * cfg.ssm_state)
+    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+    ids = torch.arange(B, device=dev)
+    cache = None
+    if "paged" in routes:
+        MB = s_cap // bs
+        cache = pc.cache_create(L, B * MB, bs, cfg.num_kv_heads,
+                                cfg.resolved_head_dim, B, MB, dtype,
+                                device=dev)
+        cache = pc.write_prefill(cache, ids, state.view_k[:, :, :, :P]
+                                 .transpose(2, 3), state.view_v[:, :, :, :P]
+                                 .transpose(2, 3))
+
+    def last_logits(route, tok, st, variant=None):
+        """The step's logits at its last step, as it computes them, or a
+        wrong variant's on the same context."""
+        if route == "shortcut":
+            ssm_ctx = ssm.SSMCache(st.ssm_conv, st.ssm_state) \
+                if cfg.has_ssm else ()
+            if variant == "SSM state zeroed":
+                ssm_ctx = ssm_ctx._replace(
+                    state=torch.zeros_like(st.ssm_state))
+            ctx = M.LayerCache(k=st.view_k, v=st.view_v, ssm=ssm_ctx)
+            inc = st.ctx_len + 1
+        else:
+            ctx = M.PagedContext(k_pool=st.k_pool, v_pool=st.v_pool,
+                                 block_tables=st.block_tables[ids])
+            inc = st.seq_lens[ids] + 1
+        positions = inc if variant == "rope position off by one" else None
+        with RouteLog(moe, renormalize=variant != "top-k weights not "
+                      "renormalized"):
+            return M.decode_step(params, cfg, tok, ctx, inc,
+                                 positions=positions)[0]
+
+    step_fns = {"shortcut": serve.make_serve_step(cfg)}
+    if "paged" in routes:
+        step_fns["paged"] = serve.make_paged_serve_step(cfg)
+    for route in routes:
+        step = step_fns[route]
+        st = state if route == "shortcut" else cache
+        kernel = route + "_attention"
+        tok, fed, secs, ev_ms = tok0, [tok0], [], []
+        for i in range(steps):
+            if i == steps - 1:
+                out[route + "_logits"] = last_logits(route, tok, st)
+                if route == "shortcut":
+                    out["wrong_logits"] = {
+                        v: last_logits(route, tok, st, v) for v in variants}
+
+            def run():
+                if route == "shortcut":
+                    return step(params, st, tok)
+                return step(params, st, tok, ids)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            with RouteLog(moe) as rl:
+                if timed and i == 1:    # one step traced (not in the mean)
+                    (tok, st), *out[route + "_trace"] = profiled(
+                        torch, run, spans)
+                else:
+                    tok, st = run()
+            ev1.record()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            ev_ms.append(ev0.elapsed_time(ev1))
+            got = _build.launches()
+            want = {kernel: decode_n} if decode_n else {}
+            assert got == want, f"(j) {cfg.name} {route} step {i}: " \
+                f"launches {got}, expected {want}"
+            fed.append(tok)
+            if log_routes:
+                out.setdefault(route + "_routes", []).extend(rl.calls)
+        assert torch.equal(
+            tok, torch.argmax(out[route + "_logits"], dim=-1).to(tok.dtype)
+        ), f"(j) {cfg.name} {route}: the step's token is not its argmax"
+        out[route] = torch.stack(fed, dim=1)
+        out[route + "_step_s"] = secs
+        out[route + "_step_ev"] = ev_ms
+        if route == "paged":
+            assert int(st.seq_lens.min()) == P + steps
+        del st
+    out["decode_launches"] = decode_n
+    return out
+
+
+def full_forward(torch, cfg, params, toks, fed, force=None) -> tuple:
+    """The last-position logits of a full forward over prompt + the fed
+    tokens (the steps' input), and the MoE router's own choices per layer;
+    ``force``: the experts each layer takes instead (``RouteLog``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    full = torch.cat([toks, fed.long()], dim=1)
+    with RouteLog(moe, force=force) as rl:
+        want, _ = M.prefill_forward(params, cfg, {"tokens": full})
+    return want, rl.calls
+
+
+def phase_family(torch, args, arch: str, timer) -> dict:
+    """(j), one model.  Served in bfloat16 (timed) on its routes at its
+    published capacity factor: the routes' tokens identical and their
+    last-step logits equal bit for bit; the decode logits' distance from a
+    full forward, and the full forward's own change under one bfloat16 ulp
+    of the embedding, both logged.  Then the check run in float32 (weights
+    drawn from --seed, its first prompts; for an MoE at capacity factor
+    E / top_k, where no pair can drop): the last-step decode logits within
+    ``family_limit`` of a float32 full forward over prompt + fed tokens (an
+    MoE's routed to the experts the prefill and the steps chose, which
+    differ from its own choices in at most ``FLIP_SHARE_LIMIT`` of them),
+    each wrong variant past it.  Then the flash and decode kernels at the
+    model's layer shapes."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, ssm
+    dev = torch.device("cuda")
+    c = FAMILY_CONFIG
+    B, P, steps = c["batch"], c["prompt"], c["steps"]
+    routes, flash_n, decode_n, n_check = FAMILY_MODELS[arch]
+    cfg = get(arch)
+    L = cfg.num_layers
+    res = {"arch": arch, "cfg": cfg, "routes": routes, "n_check": n_check}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, args.seed, torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["n_params"] = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                         device=dev)
+    log(f"(j) {arch}: {L} layers, d {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} x {cfg.resolved_head_dim}, window "
+        f"{cfg.sliding_window} (global layers {cfg.global_layers}), d_ff "
+        f"{cfg.d_ff}, experts {cfg.num_experts} top {cfg.top_k} x "
+        f"{cfg.moe_d_ff} + shared {cfg.shared_d_ff} (capacity factor "
+        f"{cfg.capacity_factor}), SSM state {cfg.ssm_state} x heads "
+        f"{cfg.ssm_heads if cfg.has_ssm else 0} x {cfg.ssm_head_dim} (chunk "
+        f"{cfg.ssm_chunk}), vocab {cfg.vocab_size}; {res['n_params']} "
+        f"parameters (bfloat16; router, A_log, D, dt_bias float32) drawn on "
+        f"the card in {res['init_s']:.3f} s")
+    spans = tuple(name for name, on in ((moe.SPAN, cfg.num_experts),
+                                        (ssm.SPAN, cfg.has_ssm)) if on)
+    variants = tuple(name for name, on in (
+        ("rope position off by one", cfg.has_attention),
+        ("SSM state zeroed", cfg.has_ssm),
+        ("top-k weights not renormalized", cfg.num_experts)) if on)
+    served = serve_family(torch, cfg, params, toks, routes, spans,
+                          torch.bfloat16, timed=True,
+                          log_routes=bool(cfg.num_experts))
+    assert served["prefill_launches"] == flash_n
+    assert served["decode_launches"] == decode_n
+    if "paged" in routes:
+        assert torch.equal(served["shortcut"], served["paged"]), \
+            f"(j) {arch}: the routes decoded different tokens"
+        assert torch.equal(served["shortcut_logits"],
+                           served["paged_logits"]), \
+            f"(j) {arch}: the routes' last-step logits differ in bits"
+    torch.cuda.synchronize()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["served"] = served
+    if cfg.num_experts:
+        res["served_C"] = moe.moe_capacity(cfg, P)
+        res["dropped"] = dropped_pairs(
+            torch, served["prefill_routes"], cfg.num_experts,
+            res["served_C"])
+        res["pairs"] = B * P * cfg.top_k
+        del served["prefill_routes"]
+    # the check runs' config: an MoE at capacity factor E / top_k, where no
+    # pair drops (at 1.25 the full forward drops others than the steps)
+    check_cfg = cfg
+    if cfg.num_experts:
+        check_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+        res["check_C"] = (moe.moe_capacity(check_cfg, P),
+                          moe.moe_capacity(check_cfg, 1),
+                          moe.moe_capacity(check_cfg, P + steps))
+    # bfloat16: the decode's distance from a full forward, the full
+    # forward's change under one ulp of the embedding, and the top-k choices
+    # that differ (ties); an MoE served again at the check's capacity
+    bf = served
+    if cfg.num_experts:
+        bf = serve_family(torch, check_cfg, params, toks, ("shortcut",), (),
+                          torch.bfloat16, timed=False, log_routes=True)
+    fed = bf["shortcut"][:, :steps]
+    want, own = full_forward(torch, check_cfg, params, toks, fed)
+    res["bf16_error"] = rel_rms(torch, bf["shortcut_logits"], want)
+    if cfg.num_experts:
+        res["bf16_flips"] = fed_flips(bf["shortcut_routes"], own, L, P,
+                                      steps)
+        res["bf16_choices"] = steps * L * B * cfg.top_k
+    res["bf16_bump"] = bumped_embed(torch, params, args.seed + 11)
+    bumped, _ = full_forward(torch, check_cfg, params, toks, fed)
+    res["bf16_moved"] = rel_rms(torch, bumped, want)
+    del params, want, bumped, bf, own
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the check run in float32
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, args.seed, torch.float32, device=dev)
+    ctoks = toks[:n_check]
+    check = serve_family(torch, check_cfg, params, ctoks, ("shortcut",), (),
+                         torch.float32, timed=False, variants=variants,
+                         log_routes=bool(cfg.num_experts))
+    fed = check["shortcut"][:, :steps]
+    force = None
+    if cfg.num_experts:
+        # each position routed as the served computation routed it: the
+        # prompt by the prefill, each fed token by its step
+        force = [torch.cat([check["prefill_routes"][j]] + [
+            check["shortcut_routes"][t * L + j] for t in range(steps)],
+            dim=1) for j in range(L)]
+    want, own = full_forward(torch, check_cfg, params, ctoks, fed, force)
+    bump = bumped_embed(torch, params, args.seed + 11)
+    bumped, _ = full_forward(torch, check_cfg, params, ctoks, fed, force)
+    res["f32_bump"] = bump
+    res["f32_moved"] = rel_rms(torch, bumped, want)
+    res["sensitivity"] = res["f32_moved"] / bump
+    res["limit"] = family_limit(arch, L, res["sensitivity"])
+    del bumped
+    if cfg.num_experts:
+        res["flips_fed"] = fed_flips(check["shortcut_routes"], own, L, P,
+                                     steps)
+        res["flips_prompt"] = sum(
+            routing_flips(check["prefill_routes"][j], own[j][:, :P])
+            for j in range(L))
+        res["flips_last"] = [
+            routing_flips(check["shortcut_routes"][(steps - 1) * L + j][:, 0],
+                          own[j][:, P + steps - 1]) for j in range(L)]
+        res["choices"] = (steps * L * n_check * cfg.top_k,
+                          L * n_check * P * cfg.top_k)
+    res["errors"] = {"shortcut": rel_rms(torch, check["shortcut_logits"],
+                                         want)}
+    res["wrong"] = {v: rel_rms(torch, lg, want)
+                    for v, lg in check["wrong_logits"].items()}
+    res["want_rms"] = float(want.float().square().mean().sqrt())
+    res["check_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log_family_checks(res)
+    for r, e in res["errors"].items():
+        if not e <= res["limit"]:
+            raise AssertionError(
+                f"(j) {arch} {r} float32 decode logits off the full forward "
+                f"by {e} (relative RMS) > {res['limit']}")
+    for v, e in res["wrong"].items():
+        if not e > res["limit"]:
+            raise AssertionError(
+                f"(j) {arch}: a float32 decode with the {v} is within the "
+                f"limit: {e} <= {res['limit']}")
+    assert set(res["wrong"]) == set(variants), res["wrong"]
+    if cfg.num_experts:
+        share = res["flips_fed"] / res["choices"][0]
+        if not share <= FLIP_SHARE_LIMIT:
+            raise AssertionError(
+                f"(j) {arch}: {res['flips_fed']} of the float32 decode "
+                f"steps' {res['choices'][0]} top-k choices differ from the "
+                f"full forward's (> {FLIP_SHARE_LIMIT})")
+    del params, want, check, own, force
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.has_attention:
+        kres = {"cfg": cfg, "decode_launches": decode_n, "routes": routes}
+        measure_flash(torch, kres, timer, "j", FAMILY_CONFIG)
+        measure_decode(torch, kres, timer, "j", FAMILY_CONFIG)
+    return res
+
+
+def log_family_checks(res) -> None:
+    """(j)'s check lines for one model, logged before its asserts so that a
+    failing run shows every number."""
+    arch, cfg, n = res["arch"], res["cfg"], res["n_check"]
+    if "dropped" in res:
+        d, (cp, cd, cf) = res["dropped"], res["check_C"]
+        log(f"(j) {arch}: the served prefill (capacity factor "
+            f"{cfg.capacity_factor}, C {res['served_C']} a row) dropped "
+            f"{sum(d)} of {res['pairs'] * len(d)} (token, choice) pairs over "
+            f"{len(d)} layers (most in a layer {max(d)}); the float32 check "
+            f"run at capacity factor {cfg.num_experts / cfg.top_k} (C {cp} at "
+            f"prefill, {cd} a decode step, {cf} in the full forward: no pair "
+            f"drops): its decode steps' top-k choices absent from the full "
+            f"forward's own at the same position {res['flips_fed']} of "
+            f"{res['choices'][0]} (limit {FLIP_SHARE_LIMIT} of them; the "
+            f"last step, per layer: {res['flips_last']}), its prefill's "
+            f"{res['flips_prompt']} of {res['choices'][1]}; the full forward "
+            f"takes the prefill's and the steps' choices")
+    flips = "" if "bf16_flips" not in res else (
+        f"; its decode steps' top-k choices absent from the full forward's "
+        f"at the same position: {res['bf16_flips']} of "
+        f"{res['bf16_choices']} (bfloat16 ties)")
+    run = "served run" if "bf16_flips" not in res else (
+        f"run at capacity factor {cfg.num_experts / cfg.top_k}")
+    log(f"(j) {arch}: bfloat16 {run}, last-step logits off a bfloat16 "
+        f"full forward by {res['bf16_error']:.4g} (relative RMS); the full "
+        f"forward itself moves by {res['bf16_moved']:.4g} when one ulp of "
+        f"the embedding moves ({res['bf16_bump']:.3g} of it)" + flips)
+    log(f"(j) {arch}: float32 check run ({n} of the prompts), last-step "
+        f"logits off the float32 full forward (logit RMS "
+        f"{res['want_rms']:.4f}): "
+        + ", ".join(f"{r} {v:.4g}" for r, v in res["errors"].items())
+        + f"; limit {res['limit']:.4g} (gain {res['sensitivity']:.4g}: the "
+        f"full forward moves by {res['f32_moved']:.3g} when one ulp of the "
+        f"embedding moves, {res['f32_bump']:.3g} of it); wrong variants "
+        + ", ".join(f"{v} {x:.4g}" for v, x in res["wrong"].items()))
+
+
+def report_family(res, smi) -> None:
+    """(j)'s report lines for one model."""
+    c = FAMILY_CONFIG
+    B, P, steps = c["batch"], c["prompt"], c["steps"]
+    arch, sv = res["arch"], res["served"]
+    pre = sv["prefill_s"][1]
+    log(f"(j) {arch} prefill ({B} x {P} tokens, warm): {pre * 1e3:.4f} ms, "
+        f"{B * P / pre:.1f} tokens/s (first call "
+        f"{sv['prefill_s'][0] * 1e3:.4f} ms); flash launches "
+        f"{sv['prefill_launches']} per prefill; card {smi}; third prefill "
+        "traced: " + traced(*sv["prefill_trace"], pre * 1e3))
+    for route in res["routes"]:
+        secs = sv[route + "_step_s"][2:]
+        ev = sv[route + "_step_ev"][2:]
+        mean = sum(secs) / len(secs)
+        log(f"(j) {arch} decode, {route} route: {mean * 1e3:.4f} ms per step "
+            f"(mean of steps 3-{steps}, host clock + sync; median "
+            f"{median(secs) * 1e3:.4f}, min {min(secs) * 1e3:.4f}, max "
+            f"{max(secs) * 1e3:.4f}; CUDA events around the step: median "
+            f"{median(ev):.4f}, min {min(ev):.4f}, max {max(ev):.4f}), "
+            f"{B / mean:.1f} tokens/s; {sv['decode_launches']} "
+            f"{route}_attention launches per step"
+            + (" (no attention layer: no kernel of the port runs)"
+               if not sv["decode_launches"] else "")
+            + "; step 2 traced: " + traced(*sv[route + "_trace"], mean * 1e3))
+    if "paged" in res["routes"]:
+        log(f"(j) {arch}: tokens identical across routes ({B} x "
+            f"{steps + 1}); last-step logits equal bit for bit")
+    log(f"(j) {arch}: max_memory_allocated {res['peak_bytes']} B over init, "
+        f"prefill and decode (bfloat16); {res['check_peak_bytes']} B in the "
+        f"float32 check run")
+
+
+def phase_families(torch, args, timer, smi) -> None:
+    """(j): each model of ``FAMILY_MODELS`` in turn, each freed before the
+    next, so that each reports its own peak memory."""
+    for arch in FAMILY_MODELS:
+        res = phase_family(torch, args, arch, timer)
+        report_family(res, smi)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # (i): Fig. 7's baselines (benchmarks/bench_fig7.py's settings at (d)'s
@@ -2827,7 +3344,13 @@ def main() -> int:
     fig7, rows = phase_fig7(torch, np, args, timer, smi)
     kernels.extend(rows)
     report_fig7(fig7, eh7, smi)
+    del fig7, rows
+    gc.collect()
+    torch.cuda.empty_cache()
     clock.lap("i")
+
+    phase_families(torch, args, timer, smi)
+    clock.lap("j")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

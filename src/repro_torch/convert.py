@@ -187,20 +187,27 @@ def kv_view_to_numpy(view) -> tuple:
     return tuple(_float_numpy(a) for a in view)
 
 
+#: parameters the reference keeps in float32 whatever the model dtype: the
+#: MoE router and the SSM's A_log, D and dt_bias
+FLOAT32_PARAMS = ("router", "A_log", "D", "dt_bias")
+
+
 def params_from_numpy(tree, *, dtype=None, device=None):
     """Model parameters as tensors from the JAX parameter pytree (a nested
     dict of arrays: ``embed``, ``layers`` with its stacked (L, ...) arrays,
     ``final_norm``, and ``lm_head`` when the embedding is not tied), each
     array of ``dtype`` (default: bfloat16 for bfloat16 arrays, else
-    float32) on ``device``."""
+    float32) on ``device``; the members named in :data:`FLOAT32_PARAMS`
+    stay float32, as the reference's ``init_params`` makes them."""
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _float_tensor(x, dtype, dev)
+            return {k: conv(v, k) for k, v in x.items()}
+        return _float_tensor(
+            x, torch.float32 if name in FLOAT32_PARAMS else dtype, dev)
 
-    return conv(tree)
+    return conv(tree, None)
 
 
 def params_to_numpy(tree):
@@ -212,7 +219,9 @@ def params_to_numpy(tree):
 
 def decode_state_from_numpy(arrays, *, dtype=None, device=None):
     """A serve ``DecodeState`` of tensors from its five members in field
-    order (a JAX ``DecodeState`` passes as it is); () members stay ()."""
+    order (a JAX ``DecodeState`` passes as it is); () members stay ().  The
+    views and ``ssm_conv`` take ``dtype`` (default: bfloat16 for bfloat16
+    arrays, else float32), ``ssm_state`` is float32 and ``ctx_len`` int32."""
     dev = resolve_device(device)
     fields = dict(zip(DecodeState._fields, arrays))
     if len(fields) != len(DecodeState._fields):
@@ -220,7 +229,8 @@ def decode_state_from_numpy(arrays, *, dtype=None, device=None):
     return DecodeState(**{
         f: (() if isinstance(a, tuple) else
             _to_tensor(a, np.int32, dev) if f == "ctx_len" else
-            _float_tensor(a, dtype, dev)) for f, a in fields.items()})
+            _float_tensor(a, torch.float32 if f == "ssm_state" else dtype,
+                          dev)) for f, a in fields.items()})
 
 
 def decode_state_to_numpy(state):

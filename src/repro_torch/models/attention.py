@@ -113,7 +113,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if prefix_len:
             raise NotImplementedError(
                 "the CUDA flash kernel has no bidirectional-prefix mask "
-                "(PaliGemma; ROADMAP queue 1 item 3)")
+                "(PaliGemma; ROADMAP queue 1 item 1)")
         return ops.mha_forward(q, k, v, causal=causal, window=window,
                                softcap=attn_softcap)
     B, Sq, H, hd = q.shape

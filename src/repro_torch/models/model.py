@@ -1,6 +1,8 @@
-"""Decoder LM for the attention-only architectures (twin of
-``repro/models/model.py``): the prefill forward and the one-token decode.
+"""Decoder LM (twin of ``repro/models/model.py``): the prefill forward and the
+one-token decode, for every registered family but the PaliGemma prefix.
 
+A layer holds attention and/or an SSM mixer (the hybrid averages the two),
+then a dense MLP, or an MoE (with arctic's parallel dense residual).
 Parameters keep the reference's layout, a dictionary whose per-layer
 tensors are stacked over the layer axis (``params["layers"]["attn"]["wq"]``
 is (L, D, H*hd)); each layer reads the view ``[i]`` with no copy.  The
@@ -8,10 +10,10 @@ reference's ``lax.scan`` over layer runs (and its remat) becomes a plain
 Python loop over the same runs (:func:`layer_runs`), and its
 ``distributed.constrain`` sharding pins have no counterpart on one card.
 
-Not here yet (ROADMAP queue 1 items 3 and 4): MoE (``num_experts``), SSM
-(``has_ssm``), the PaliGemma prefix input (``prefix_embeddings``), and
-training (``train_forward``, ``chunked_softmax_xent``); each raises
-``NotImplementedError`` where the reference would run it.
+Not here yet: the PaliGemma prefix input (``prefix_embeddings``, ROADMAP
+queue 1 item 1), which raises ``NotImplementedError`` where the reference
+would run it, and training (``train_forward``, ``chunked_softmax_xent``,
+queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -22,19 +24,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, softcap)
 
 
 def _require_supported(cfg: ArchConfig) -> None:
-    missing = [name for name, on in (
-        ("SSM layers", cfg.has_ssm), ("MoE layers", cfg.num_experts),
-        ("the prefix_embeddings input", cfg.input_mode == "prefix_embeddings"),
-        ("attention-free layers", not cfg.has_attention)) if on]
-    if missing:
+    if cfg.input_mode == "prefix_embeddings":
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "queue 1 item 3: moe.py, ssm.py, the PaliGemma prefix)")
+            f"{cfg.name}: the prefix_embeddings input is not ported yet "
+            "(ROADMAP queue 1 item 1: the PaliGemma prefix)")
 
 
 # -- layer kinds / runs --------------------------------------------------------
@@ -84,15 +84,23 @@ def _layer_order(cfg: ArchConfig):
 def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
     _require_supported(cfg)
     p: dict[str, Any] = {
-        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
-        "attn": attn.attn_init(gen, cfg, dtype, device)}
-    if cfg.d_ff:
+        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.has_attention:
+        p["attn"] = attn.attn_init(gen, cfg, dtype, device)
+    if cfg.has_ssm:
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg, dtype, device)
+    if cfg.d_ff or cfg.num_experts:
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    if cfg.d_ff:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    if cfg.num_experts:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     return p
 
 
 def _stack_into(dst: dict, i: int, src: dict, L: int) -> None:
+    """Layer ``i``'s tensors into the (L, ...) stacks, each stack of its
+    layer tensor's dtype (the float32 router and SSM members stay float32)."""
     for name, t in src.items():
         if isinstance(t, dict):
             _stack_into(dst.setdefault(name, {}), i, t, L)
@@ -145,29 +153,52 @@ class LayerCache(NamedTuple):
 PagedContext = attn.PagedContext
 
 
+def _mix(outs: list) -> torch.Tensor:
+    """One mixer's output, or the hybrid's average of attention and SSM."""
+    return outs[0] if len(outs) == 1 else (outs[0] + outs[1]) * 0.5
+
+
 def _mixer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
            positions: torch.Tensor):
-    """Attention on pre-normed input (full sequence); returns the new
-    residual stream and the layer's (padded) k, v."""
+    """Attention and/or SSM on pre-normed input (full sequence); returns the
+    new residual stream and the layer's :class:`LayerCache`: the (padded)
+    k, v with attention, the ``SSMCache`` with an SSM."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
-    q, k, v, _ = attn.pad_heads(q, k, v, cfg)
-    window = cfg.sliding_window if kind == "local" else None
-    o = attn.blockwise_attention(
-        q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
-        causal=True, window=window, attn_softcap=cfg.attn_softcap,
-        prefix_len=cfg.prefix_len)
     B, S = x.shape[:2]
-    o = attn.unpad_heads(o, cfg)
-    return h + o.reshape(B, S, -1) @ lp["attn"]["wo"], k, v
+    outs = []
+    cache = LayerCache()
+    if cfg.has_attention:
+        q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
+        q, k, v, _ = attn.pad_heads(q, k, v, cfg)
+        window = cfg.sliding_window if kind == "local" else None
+        o = attn.blockwise_attention(
+            q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+            causal=True, window=window, attn_softcap=cfg.attn_softcap,
+            prefix_len=cfg.prefix_len)
+        o = attn.unpad_heads(o, cfg)
+        outs.append(o.reshape(B, S, -1) @ lp["attn"]["wo"])
+        cache = cache._replace(k=k, v=v)
+    if cfg.has_ssm:
+        o, ssm_cache = ssm_mod.ssm_apply(lp["ssm"], x, cfg)
+        outs.append(o)
+        cache = cache._replace(ssm=ssm_cache)
+    return h + _mix(outs), cache
 
 
-def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The dense MLP (the reference's MoE branch is not ported yet)."""
-    if not cfg.d_ff:
-        return h
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig):
+    """MLP or MoE (+ arctic's parallel dense residual); returns the new
+    residual stream and the router's auxiliary loss (None without MoE)."""
+    aux = None
+    if not (cfg.d_ff or cfg.num_experts):
+        return h, aux
     x = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + mlp_apply(lp["mlp"], x, cfg.act)
+    if cfg.num_experts:
+        out, aux = moe_mod.moe_apply(lp["moe"], x, cfg)
+        if cfg.dense_residual and cfg.d_ff:
+            out = out + mlp_apply(lp["mlp"], x, cfg.act)
+    else:
+        out = mlp_apply(lp["mlp"], x, cfg.act)
+    return h + out, aux
 
 
 # -- full-sequence forward -------------------------------------------------------
@@ -183,30 +214,45 @@ def _embed_inputs(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     raise ValueError(cfg.input_mode)
 
 
+def _stacked(t: torch.Tensor, L: int) -> torch.Tensor:
+    return torch.empty((L,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+
+
 def forward_hidden(params, cfg: ArchConfig, batch: dict, *,
                    want_cache: bool = False):
-    """Embed + all layers + final norm.  Returns (hidden (B,S,D), caches):
-    a :class:`LayerCache` of (L, B, S, KVp, hd) k and v with
-    ``want_cache``, else None.  (The reference also returns the MoE router's
-    auxiliary loss, which comes with MoE.)"""
+    """Embed + all layers + final norm.  Returns (hidden (B,S,D), caches,
+    aux_total): with ``want_cache`` a :class:`LayerCache` of (L, B, S, KVp,
+    hd) k and v (with attention) and an ``SSMCache`` of (L, B, d_conv-1,
+    conv_dim) conv windows and (L, B, H, P, N) float32 states (with an
+    SSM), else None; ``aux_total`` the router's auxiliary loss summed over
+    the layers, () float32."""
     _require_supported(cfg)
     h = _embed_inputs(params, cfg, batch)
     B, S = h.shape[:2]
+    L = cfg.num_layers
     positions = torch.arange(S, device=h.device)[None]
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = None
     for i, kind in _layer_order(cfg):
         lp = _layer(params["layers"], i)
-        h, k, v = _mixer(lp, h, cfg, kind, positions)
-        h = _ffn(lp, h, cfg)
+        h, cache = _mixer(lp, h, cfg, kind, positions)
+        h, aux = _ffn(lp, h, cfg)
+        if aux is not None:
+            aux_total = aux_total + aux
         if want_cache:
             if caches is None:
-                shape = (cfg.num_layers,) + tuple(k.shape)
                 caches = LayerCache(
-                    k=torch.empty(shape, dtype=k.dtype, device=k.device),
-                    v=torch.empty(shape, dtype=v.dtype, device=v.device))
-            caches.k[i] = k
-            caches.v[i] = v
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+                    k=_stacked(cache.k, L) if cfg.has_attention else (),
+                    v=_stacked(cache.v, L) if cfg.has_attention else (),
+                    ssm=ssm_mod.SSMCache(*(_stacked(c, L) for c in cache.ssm))
+                    if cfg.has_ssm else ())
+            if cfg.has_attention:
+                caches.k[i] = cache.k
+                caches.v[i] = cache.v
+            if cfg.has_ssm:
+                caches.ssm.conv[i] = cache.ssm.conv
+                caches.ssm.state[i] = cache.ssm.state
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches, aux_total
 
 
 def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -222,7 +268,7 @@ def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prefill_forward(params, cfg: ArchConfig, batch: dict):
     """Full forward returning (last-position logits, stacked caches)."""
-    h, caches = forward_hidden(params, cfg, batch, want_cache=True)
+    h, caches, _ = forward_hidden(params, cfg, batch, want_cache=True)
     return _logits(params, cfg, h[:, -1]), caches
 
 
@@ -237,21 +283,23 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     token:   (B,) int current input token.
     ctx:     the old tokens' context, either a :class:`LayerCache` of
              stacked per-layer views k/v (L, B, KV, S_ctx, hd) (old tokens
-             live in [0, ctx_len-1); the shortcut route), or a
+             live in [0, ctx_len-1); the shortcut route) and, with an SSM,
+             an ``SSMCache`` of the stacked conv windows and states; or a
              :class:`PagedContext` of the cache's pools and the sequences'
-             block tables (the paged route).
+             block tables (the paged route, attention only).
     ctx_len: (B,) context length INCLUDING the new token.
     positions: (B,) rope position of the new token; default ``ctx_len - 1``
              (a caller passes another only to show that a wrong one moves
              the logits).
 
-    On CUDA each layer attends through the decode kernel, which reads the
-    views or the pools in place; on the CPU through the plain
+    On CUDA each attention layer attends through the decode kernel, which
+    reads the views or the pools in place; on the CPU through the plain
     ``decode_attention`` (``attention.context_attention``).
 
-    Returns (logits (B, V), LayerCache(k, v) of the new token's (L, B, KV,
-    hd) rows).  The caller appends them into its pool (paged) or view
-    (shortcut)."""
+    Returns (logits (B, V), LayerCache of the new token's (L, B, KV, hd)
+    k/v rows (with attention) and the stacked new ``SSMCache`` (with an
+    SSM); absent members ()).  The caller appends the rows into its pool
+    (paged) or view (shortcut) and keeps the SSM cache."""
     _require_supported(cfg)
     dev = params["embed"].device
     token = torch.as_tensor(token, device=dev).long()
@@ -262,19 +310,33 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
         positions = ctx_len - 1
     positions = torch.as_tensor(positions, device=dev)[:, None]
     kinds = layer_kinds(cfg)
-    B = token.shape[0]
-    new_k, new_v = [None] * cfg.num_layers, [None] * cfg.num_layers
+    B, L = token.shape[0], cfg.num_layers
+    new_k, new_v = [None] * L, [None] * L
+    new_conv, new_state = [None] * L, [None] * L
     for i, _ in _layer_order(cfg):
         lp = _layer(params["layers"], i)
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
-        window = cfg.sliding_window if kinds[i] == "local" else None
-        o = attn.context_attention(
-            q[:, 0], ctx, i, ctx_len, old_len, k[:, 0], v[:, 0],
-            attn_softcap=cfg.attn_softcap, window=window)
-        h = h + (o.reshape(B, -1) @ lp["attn"]["wo"])[:, None]
-        h = _ffn(lp, h, cfg)
-        new_k[i], new_v[i] = k[:, 0], v[:, 0]
+        outs = []
+        if cfg.has_attention:
+            q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
+            window = cfg.sliding_window if kinds[i] == "local" else None
+            o = attn.context_attention(
+                q[:, 0], ctx, i, ctx_len, old_len, k[:, 0], v[:, 0],
+                attn_softcap=cfg.attn_softcap, window=window)
+            outs.append((o.reshape(B, -1) @ lp["attn"]["wo"])[:, None])
+            new_k[i], new_v[i] = k[:, 0], v[:, 0]
+        if cfg.has_ssm:
+            o, (new_conv[i], new_state[i]) = ssm_mod.ssm_decode(
+                lp["ssm"], x[:, 0],
+                ssm_mod.SSMCache(ctx.ssm.conv[i], ctx.ssm.state[i]), cfg)
+            outs.append(o[:, None])
+        h, _ = _ffn(lp, h + _mix(outs), cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h[:, 0])
-    return logits, LayerCache(k=torch.stack(new_k), v=torch.stack(new_v))
+    new = LayerCache()
+    if cfg.has_attention:
+        new = new._replace(k=torch.stack(new_k), v=torch.stack(new_v))
+    if cfg.has_ssm:
+        new = new._replace(ssm=ssm_mod.SSMCache(
+            conv=torch.stack(new_conv), state=torch.stack(new_state)))
+    return logits, new

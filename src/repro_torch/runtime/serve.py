@@ -14,12 +14,15 @@ Per-shard decode states (:func:`shard_decode_state` /
 :func:`merge_decode_states`): row ``b`` belongs to shard ``b % N``, the
 partition of ``ShortcutKVManager``.
 
-The shortcut step writes the new token's K/V row into the state's view **in
-place** and returns the same view tensors: it consumes its input state, as
-the reference's jitted step does with donated buffers, instead of cloning
-the whole view each step.  The reference's ``decode_state_struct``,
+The shortcut step writes the new token's K/V row into the state's view, and
+the new SSM conv window and state into its SSM members, **in place** and
+returns the same tensors: it consumes its input state, as the reference's
+jitted step does with donated buffers, instead of cloning the whole view
+each step.  The paged step serves attention-only models: the reference's
+passes no SSM state (``ssm=()``), so its SSM decode cannot run there, and
+the port raises instead.  The reference's ``decode_state_struct``,
 ``decode_state_names`` and ``decode_state_specs`` describe mesh shardings
-and wait for ROADMAP queue 1 item 5; SSM state waits for item 3.
+and wait for ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -31,15 +34,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kvcache import paged_cache as pc
 from repro_torch.models import model as M
+from repro_torch.models import ssm as ssm_mod
 
 
 class DecodeState(NamedTuple):
-    """Decode-time state.  Unused members are () (no SSM members yet)."""
-    view_k: Any           # (L, B, KV, S_cap, hd)
+    """Decode-time state.  Unused members are () (no view_k for a pure SSM
+    model, no ssm_* without an SSM)."""
+    view_k: Any           # (L, B, KV, S_cap, hd) or ()
     view_v: Any
-    ssm_conv: Any         # ()
-    ssm_state: Any        # ()
-    ctx_len: torch.Tensor  # (B,) int32 tokens already in the view
+    ssm_conv: Any         # (L, B, d_conv-1, conv_dim) model dtype, or ()
+    ssm_state: Any        # (L, B, H, P, N) float32, or ()
+    ctx_len: torch.Tensor  # (B,) int32 tokens already in the cache
 
 
 def decode_state_init(cfg: ArchConfig, batch: int, s_cap: int,
@@ -47,12 +52,20 @@ def decode_state_init(cfg: ArchConfig, batch: int, s_cap: int,
     """A zero state on ``device`` (default ``"cuda"``)."""
     M._require_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, s_cap,
-             cfg.resolved_head_dim)
+    L = cfg.num_layers
+    vk = vv = sc = ss = ()
+    if cfg.has_attention:
+        shape = (L, batch, cfg.num_kv_heads, s_cap, cfg.resolved_head_dim)
+        vk = torch.zeros(shape, dtype=dtype, device=dev)
+        vv = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.has_ssm:
+        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+        sc = torch.zeros((L, batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                         device=dev)
+        ss = torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                          cfg.ssm_state), dtype=torch.float32, device=dev)
     return DecodeState(
-        view_k=torch.zeros(shape, dtype=dtype, device=dev),
-        view_v=torch.zeros(shape, dtype=dtype, device=dev),
-        ssm_conv=(), ssm_state=(),
+        view_k=vk, view_v=vv, ssm_conv=sc, ssm_state=ss,
         ctx_len=torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
@@ -120,24 +133,36 @@ def make_prefill_step(cfg: ArchConfig, s_cap: int,
     """(params, batch) -> (last-position logits, DecodeState).
 
     Runs the full forward once, then lays the per-layer caches out as the
-    S_cap-padded shortcut view (the serving layer's *create request*)."""
+    S_cap-padded shortcut view (the serving layer's *create request*) and
+    keeps the SSM conv windows (in ``dtype``) and float32 states."""
     M._require_supported(cfg)
 
     def prefill(params, batch):
         logits, caches = M.prefill_forward(params, cfg, batch)
-        L, B, S, KV, hd = caches.k.shape
+        B, S = logits.shape[0], _prompt_len(cfg, batch)
         if S > s_cap:
             raise ValueError(f"prompt of {S} tokens > s_cap {s_cap}")
-        dev = caches.k.device
-        views = []
-        for c in (caches.k, caches.v):
-            view = torch.zeros((L, B, KV, s_cap, hd), dtype=dtype, device=dev)
-            view[:, :, :, :S] = c.transpose(2, 3)
-            views.append(view)
+        dev = logits.device
+        views = [(), ()]
+        if cfg.has_attention:
+            L, _, _, KV, hd = caches.k.shape
+            for j, c in enumerate((caches.k, caches.v)):
+                views[j] = torch.zeros((L, B, KV, s_cap, hd), dtype=dtype,
+                                       device=dev)
+                views[j][:, :, :, :S] = c.transpose(2, 3)
+        sc = ss = ()
+        if cfg.has_ssm:
+            sc, ss = caches.ssm.conv.to(dtype), caches.ssm.state
         ctx_len = torch.full((B,), S, dtype=torch.int32, device=dev)
         return logits, DecodeState(view_k=views[0], view_v=views[1],
-                                   ssm_conv=(), ssm_state=(), ctx_len=ctx_len)
+                                   ssm_conv=sc, ssm_state=ss, ctx_len=ctx_len)
     return prefill
+
+
+def _prompt_len(cfg: ArchConfig, batch: dict) -> int:
+    lead = batch["tokens"] if cfg.input_mode == "tokens" \
+        else batch["embeddings"]
+    return int(lead.shape[1])
 
 
 def _write_row(view: torch.Tensor, idx: torch.Tensor,
@@ -165,16 +190,23 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     """(params, state, token (B,)) -> (next_token (B,) int32, state).
 
     The shortcut decode: attention reads the contiguous view, then the new
-    token's K/V row goes into position ``ctx_len`` of each sequence, in
-    place: the returned state shares the input's view tensors."""
+    token's K/V row goes into position ``ctx_len`` of each sequence, and
+    the new SSM conv window and state over the old ones, in place: the
+    returned state shares the input's tensors."""
     M._require_supported(cfg)
 
     def serve_step(params, state: DecodeState, token: torch.Tensor):
-        ctx = M.LayerCache(k=state.view_k, v=state.view_v)
+        ssm = ssm_mod.SSMCache(conv=state.ssm_conv, state=state.ssm_state) \
+            if cfg.has_ssm else ()
+        ctx = M.LayerCache(k=state.view_k, v=state.view_v, ssm=ssm)
         ctx_len_inc = state.ctx_len + 1         # includes the current token
         logits, new = M.decode_step(params, cfg, token, ctx, ctx_len_inc)
-        _write_row(state.view_k, state.ctx_len, new.k)
-        _write_row(state.view_v, state.ctx_len, new.v)
+        if cfg.has_attention:
+            _write_row(state.view_k, state.ctx_len, new.k)
+            _write_row(state.view_v, state.ctx_len, new.v)
+        if cfg.has_ssm:
+            state.ssm_conv.copy_(new.ssm.conv)
+            state.ssm_state.copy_(new.ssm.state)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, state._replace(ctx_len=ctx_len_inc)
     return serve_step
@@ -191,8 +223,15 @@ def make_paged_serve_step(cfg: ArchConfig) -> Callable:
     the decode kernel, in place; on the CPU a per-layer gather, which
     ``paged_cache.gather_context`` computes for all layers at once); the new
     rows are appended with ``paged_cache.append_tokens`` (copy-on-write, as
-    everywhere in the paged cache)."""
+    everywhere in the paged cache).  Attention-only models: a model with an
+    SSM raises ``NotImplementedError`` (the paged cache holds no SSM state;
+    the reference's paged step passes none, and its SSM decode fails)."""
     M._require_supported(cfg)
+    if cfg.has_ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: the paged route serves attention-only models; "
+            "its SSM state has no place in the paged cache (serve it with "
+            "make_serve_step)")
 
     def serve_step(params, cache: pc.PagedKVCache, token: torch.Tensor,
                    seq_ids: torch.Tensor):

@@ -2,9 +2,9 @@
 attention, model) against ``repro.models`` on the same parameters (the JAX
 package's ``init_params`` carried across with ``convert.params_from_numpy``)
 and the same tokens, in float32 on the CPU at ``.reduced()`` widths, for the
-attention-only architectures.  Tolerance 1e-5 (rtol = atol): the two sum in
-other orders, and rope's float32 cos and sin may differ from XLA's by an
-ulp."""
+attention-only architectures and the MoE, SSM and hybrid ones.  Tolerance
+1e-5 (rtol = atol): the two sum in other orders, and rope's float32 cos and
+sin may differ from XLA's by an ulp."""
 import dataclasses
 
 import jax
@@ -26,6 +26,8 @@ from repro_torch.runtime import serve
 B, S = 2, 64
 ATTN_ARCHS = ["qwen3_4b", "internlm2_1_8b", "gemma2_27b",
               "command_r_plus_104b", "musicgen_medium"]
+MOE_SSM_ARCHS = ["qwen2_moe_a2_7b", "arctic_480b", "mamba2_370m",
+                 "hymba_1_5b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -69,28 +71,48 @@ def tbatch(cfg, tp, toks, n):
 
 
 def decode_ctx_j(caches, pad=16):
-    k = jnp.pad(caches.k.transpose(0, 1, 3, 2, 4),
-                ((0, 0), (0, 0), (0, 0), (0, pad), (0, 0)))
-    v = jnp.pad(caches.v.transpose(0, 1, 3, 2, 4),
-                ((0, 0), (0, 0), (0, 0), (0, pad), (0, 0)))
-    return JM.LayerCache(k=k, v=v, ssm=())
+    """The prefill's caches as the reference's decode context: the views
+    (attention-native, padded) and the stacked SSM cache."""
+    k = v = ()
+    if not isinstance(caches.k, tuple):
+        k, v = (jnp.pad(c.transpose(0, 1, 3, 2, 4),
+                        ((0, 0), (0, 0), (0, 0), (0, pad), (0, 0)))
+                for c in (caches.k, caches.v))
+    return JM.LayerCache(k=k, v=v, ssm=caches.ssm)
 
 
 def decode_ctx_t(caches, pad=16):
-    def lay(c):
-        return torch.nn.functional.pad(c.transpose(2, 3), (0, 0, 0, pad))
-    return M.LayerCache(k=lay(caches.k), v=lay(caches.v))
+    k = v = ()
+    if not isinstance(caches.k, tuple):
+        k, v = (torch.nn.functional.pad(c.transpose(2, 3), (0, 0, 0, pad))
+                for c in (caches.k, caches.v))
+    return M.LayerCache(k=k, v=v, ssm=caches.ssm)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def close_caches(tc, jc):
+    """Every member of two (prefill or decode) LayerCaches, () where the
+    reference has ()."""
+    for name in ("k", "v"):
+        if isinstance(getattr(jc, name), tuple):
+            assert getattr(tc, name) == ()
+        else:
+            close(getattr(tc, name), getattr(jc, name))
+    if jc.ssm == ():
+        assert tc.ssm == ()
+    else:
+        close(tc.ssm.conv, jc.ssm.conv)
+        close(tc.ssm.state, jc.ssm.state)
+        assert tc.ssm.state.dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_SSM_ARCHS)
 def test_prefill_and_decode_match_jax(arch):
     cfg_j, cfg_t, jp, tp, toks = setup(arch)
     jl, jc = JM.prefill_forward(jp, cfg_j, jbatch(cfg_j, jp, toks, S))
     tl, tc = M.prefill_forward(tp, cfg_t, tbatch(cfg_t, tp, toks, S))
     assert tl.shape == (B, cfg_t.vocab_size)
     close(tl, jl)
-    close(tc.k, jc.k)
-    close(tc.v, jc.v)
+    close_caches(tc, jc)
 
     ctx_len = np.full((B,), S + 1, np.int32)
     jlog, jnew = JM.decode_step(jp, cfg_j, jnp.asarray(toks[:, S]),
@@ -98,30 +120,52 @@ def test_prefill_and_decode_match_jax(arch):
     tlog, tnew = M.decode_step(tp, cfg_t, torch.from_numpy(toks[:, S]),
                                decode_ctx_t(tc), torch.from_numpy(ctx_len))
     close(tlog, jlog)
-    close(tnew.k, jnew.k)
-    close(tnew.v, jnew.v)
+    close_caches(tnew, jnew)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_SSM_ARCHS)
 def test_decode_matches_full_forward(arch):
     """The reference's strongest cache check, on the port alone: prefill(S)
     + decode_step == the full forward's logits at position S (the reference
-    test's 2e-4)."""
+    test's 2e-4; the reduced MoE configs' capacity drops no pair)."""
     _, cfg, _, tp, toks = setup(arch)
     want, _ = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S + 1))
     _, caches = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S))
+    ctx_len = torch.full((B,), S + 1, dtype=torch.int32)
     got, new = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
-                             decode_ctx_t(caches),
-                             torch.full((B,), S + 1, dtype=torch.int32))
+                             decode_ctx_t(caches), ctx_len)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    assert new.k.shape == (cfg.num_layers, B, cfg.num_kv_heads,
-                           cfg.resolved_head_dim)
-    # a wrong rope position moves the logits past that tolerance
-    bad, _ = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
-                           decode_ctx_t(caches),
-                           torch.full((B,), S + 1, dtype=torch.int32),
-                           positions=torch.full((B,), S + 1))
-    assert (bad - want).abs().max() > 1e-2
+    if cfg.has_attention:
+        assert new.k.shape == (cfg.num_layers, B, cfg.num_kv_heads,
+                               cfg.resolved_head_dim)
+        # a wrong rope position moves the logits past that tolerance
+        bad, _ = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
+                               decode_ctx_t(caches), ctx_len,
+                               positions=torch.full((B,), S + 1))
+        assert (bad - want).abs().max() > 1e-2
+    if cfg.has_ssm:
+        assert new.ssm.state.shape == caches.ssm.state.shape
+        # and so does a decode from a zeroed SSM state
+        ctx = decode_ctx_t(caches)
+        ctx = ctx._replace(ssm=ctx.ssm._replace(
+            state=torch.zeros_like(ctx.ssm.state)))
+        bad, _ = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]), ctx,
+                               ctx_len)
+        assert (bad - want).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS + ["qwen3_4b"])
+def test_forward_hidden_aux_matches_jax(arch):
+    """``forward_hidden``'s third value, the router's auxiliary loss summed
+    over the layers (0 without MoE)."""
+    cfg_j, cfg_t, jp, tp, toks = setup(arch, seed=5)
+    jh, _, jaux = JM.forward_hidden(jp, cfg_j, jbatch(cfg_j, jp, toks, S),
+                                    want_cache=False, remat=False)
+    th, caches, aux = M.forward_hidden(tp, cfg_t, tbatch(cfg_t, tp, toks, S))
+    assert caches is None and aux.dtype == torch.float32 and aux.dim() == 0
+    assert th.shape == jh.shape
+    close(aux, jaux)
+    assert (float(aux) > 0) == bool(cfg_t.num_experts)
 
 
 def test_layer_kinds_and_runs_match_jax():
@@ -280,8 +324,64 @@ def test_bf16_decode_logit_limit():
     assert sound <= 0.06 < wrong, (sound, wrong)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "qwen2_moe_a2_7b",
-                                  "paligemma_3b", "hymba_1_5b"])
+@pytest.mark.parametrize("arch", ["paligemma_3b"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1 item 1: the PaliGemma prefix"):
         M.init_params(get(arch).reduced(), 0, torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_moe_ssm_families_init(arch):
+    """The four families' parameters: the reference's tree, shapes and
+    dtypes at a bfloat16 model dtype (the router and the SSM's A_log, D and
+    dt_bias float32)."""
+    cfg = get(arch).reduced()
+    params = M.init_params(cfg, 0, torch.bfloat16, device="cpu")
+    jp = jax.eval_shape(lambda: JM.init_params(
+        jget(arch).reduced(), jax.random.PRNGKey(0), jnp.bfloat16))
+    flat_t = dict(_flatten(params))
+    flat_j = dict(_flatten(jp))
+    assert flat_t.keys() == flat_j.keys()
+    for name, want in flat_j.items():
+        got = flat_t[name]
+        assert tuple(got.shape) == want.shape, name
+        assert (got.dtype == torch.float32) == (want.dtype == jnp.float32), \
+            name
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+def test_convert_keeps_float32_members():
+    """``convert.params_from_numpy`` under a bfloat16 ``dtype`` casts the
+    model's tensors but keeps the router and the SSM's A_log, D and dt_bias
+    float32; ``decode_state_from_numpy`` keeps ``ssm_state`` float32 and
+    gives ``ssm_conv`` the model dtype."""
+    from repro.runtime import serve as jserve
+    for arch in ("qwen2_moe_a2_7b", "hymba_1_5b"):
+        cfg_j = jget(arch).reduced()
+        jp = JM.init_params(cfg_j, jax.random.PRNGKey(0), jnp.float32)
+        tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                       dtype=torch.bfloat16, device="cpu")
+        for name, t in _flatten(tp):
+            leaf = name.rsplit("/", 1)[-1]
+            want = torch.float32 if leaf in ("router", "A_log", "D",
+                                             "dt_bias") else torch.bfloat16
+            assert t.dtype == want, (arch, name, t.dtype)
+        back = convert.params_to_numpy(tp)
+        np.testing.assert_array_equal(back["layers"]["ln1"],
+                                      np.asarray(jp["layers"]["ln1"]))
+    jst = jserve.decode_state_init(jget("hymba_1_5b").reduced(), 2, 16,
+                                   jnp.float32)
+    st = convert.decode_state_from_numpy(jst, dtype=torch.bfloat16,
+                                         device="cpu")
+    assert st.view_k.dtype == torch.bfloat16
+    assert st.ssm_conv.dtype == torch.bfloat16
+    assert st.ssm_state.dtype == torch.float32
+    assert st.ctx_len.dtype == torch.int32

@@ -3,9 +3,10 @@ prefill, shortcut and paged serve steps against ``repro.runtime.serve`` on
 the same parameters and tokens (``tests/test_serve_runtime.py``'s setup), in
 float32 on the CPU.  The greedy tokens must be equal, token for token, on
 both routes, to the JAX package's and to the no-cache ground truth; the
-views within 1e-5.  The per-shard decode states are held to the port's own
-whole-batch step, since the reference's sharded test fails (ROADMAP section
-3)."""
+views and the SSM states within 1e-5.  qwen2_moe serves on both routes,
+mamba2 and hymba (SSM state) on the shortcut route; the paged route refuses
+an SSM.  The per-shard decode states are held to the port's own whole-batch
+step, since the reference's sharded test fails (ROADMAP section 3)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +26,8 @@ from repro_torch.runtime import serve
 B, S, S_CAP, STEPS, BS = 2, 32, 64, 4, 8
 
 
-@pytest.fixture(scope="module", params=["qwen3_4b", "gemma2_27b"])
+@pytest.fixture(scope="module", params=["qwen3_4b", "gemma2_27b",
+                                        "qwen2_moe_a2_7b"])
 def setup(request):
     arch = request.param
     cfg_j, cfg_t = jget(arch).reduced(), get(arch).reduced()
@@ -48,25 +50,25 @@ def ground_truth(cfg, params, toks, steps):
     return torch.stack(out, dim=1).numpy()
 
 
-def jax_shortcut(cfg, jp, toks):
+def jax_shortcut(cfg, jp, toks, steps=STEPS):
     prefill = jserve.make_prefill_step(cfg, s_cap=S_CAP, dtype=jnp.float32)
     step = jax.jit(jserve.make_serve_step(cfg))
     logits, state = prefill(jp, {"tokens": jnp.asarray(toks)})
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
     got = [tok]
-    for _ in range(STEPS - 1):
+    for _ in range(steps - 1):
         tok, state = step(jp, state, tok)
         got.append(tok)
     return np.asarray(jnp.stack(got, axis=1)), state
 
 
-def port_shortcut(cfg, tp, toks):
+def port_shortcut(cfg, tp, toks, steps=STEPS):
     prefill = serve.make_prefill_step(cfg, S_CAP, torch.float32)
     step = serve.make_serve_step(cfg)
     logits, state = prefill(tp, {"tokens": torch.tensor(toks)})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     got = [tok]
-    for _ in range(STEPS - 1):
+    for _ in range(steps - 1):
         tok, state = step(tp, state, tok)
         got.append(tok)
     return torch.stack(got, dim=1).numpy(), state
@@ -235,3 +237,141 @@ def test_full_view_row_is_dropped_like_jax(setup):
         np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v),
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(got_v[:, 1].numpy(), old[:, 1])
+
+
+SSM_ARCHS = ["mamba2_370m", "hymba_1_5b"]
+
+
+def ssm_setup(arch):
+    """``tests/test_serve_runtime.py::test_stateful_families_serve``'s
+    parameters and tokens, in both packages."""
+    cfg_j, cfg_t = jget(arch).reduced(), get(arch).reduced()
+    jp = JM.init_params(cfg_j, jax.random.PRNGKey(2), jnp.float32)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(3), (B, S), 0,
+                                         cfg_j.vocab_size), np.int32)
+    return cfg_j, cfg_t, jp, tp, toks
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_families_serve_match_jax_and_ground_truth(arch):
+    """The twin of the reference's stateful-families serve test: greedy
+    tokens equal to the JAX package's and to the no-cache ground truth, and
+    the state (SSM conv windows and float32 states; hymba's views) within
+    1e-5 of the JAX step's."""
+    cfg_j, cfg_t, jp, tp, toks = ssm_setup(arch)
+    want, jstate = jax_shortcut(cfg_j, jp, toks, steps=3)
+    got, state = port_shortcut(cfg_t, tp, toks, steps=3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ground_truth(cfg_t, tp, toks, 3))
+    tst = convert.decode_state_to_numpy(state)
+    assert state.ssm_state.dtype == torch.float32
+    np.testing.assert_array_equal(tst.ctx_len, np.asarray(jstate.ctx_len))
+    for name in ("view_k", "view_v", "ssm_conv", "ssm_state"):
+        want_m = getattr(jstate, name)
+        if isinstance(want_m, tuple):
+            assert getattr(tst, name) == (), name
+        else:
+            np.testing.assert_allclose(getattr(tst, name),
+                                       np.asarray(want_m), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS + ["qwen2_moe_a2_7b"])
+def test_decode_state_init_matches_jax(arch):
+    cfg_j, cfg_t = jget(arch).reduced(), get(arch).reduced()
+    jst = jserve.decode_state_init(cfg_j, batch=3, s_cap=16,
+                                   dtype=jnp.bfloat16)
+    st = serve.decode_state_init(cfg_t, 3, 16, torch.bfloat16, device="cpu")
+    for got, want in zip(st, jst):
+        if isinstance(want, tuple):
+            assert got == ()
+        else:
+            assert tuple(got.shape) == want.shape
+            assert (got.dtype == torch.float32) == (want.dtype == jnp.float32)
+            assert not got.any()
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_paged_serve_step_refuses_ssm(arch):
+    """The reference's paged step passes no SSM state (``ssm=()``), so its
+    SSM decode cannot run; the port refuses the model up front."""
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        serve.make_paged_serve_step(get(arch).reduced())
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 3])
+def test_shard_merge_decode_state_roundtrip_with_ssm(num_shards):
+    """hymba: attention and SSM, so every member of the state is a tensor;
+    rows marked by their index."""
+    cfg = get("hymba_1_5b").reduced()
+    st = serve.decode_state_init(cfg, 5, 16, torch.float32, device="cpu")
+    st = serve.DecodeState(*(
+        m + torch.arange(5, dtype=m.dtype).reshape(
+            (1, 5) + (1,) * (m.dim() - 2)) if m.dim() > 1
+        else torch.arange(5, dtype=m.dtype) * 3 for m in st))
+    parts = serve.shard_decode_state(st, num_shards)
+    for s, p in enumerate(parts):
+        rows = list(range(s, 5, num_shards))
+        assert p.ssm_state[:, :, 0, 0, 0].tolist() == [rows] * cfg.num_layers
+        assert p.ssm_conv.shape[1] == len(rows)
+    merged = serve.merge_decode_states(parts)
+    for got, want in zip(merged, st):
+        assert torch.equal(got, want)
+
+
+def test_sharded_decode_with_ssm_matches_whole_batch():
+    """hymba: two per-shard decode loops, each stepping its own rows in
+    place (views and SSM members are strided views of the whole batch),
+    give the whole-batch loop's tokens and, merged, its state within
+    1e-5."""
+    _, cfg, _, tp, toks = ssm_setup("hymba_1_5b")
+    prefill = serve.make_prefill_step(cfg, S_CAP, torch.float32)
+    step = serve.make_serve_step(cfg)
+    logits, whole = prefill(tp, {"tokens": torch.tensor(toks)})
+    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+    wtok, whole_toks = tok0, []
+    for _ in range(3):
+        wtok, whole = step(tp, whole, wtok)
+        whole_toks.append(wtok)
+    _, state = prefill(tp, {"tokens": torch.tensor(toks)})
+    parts = serve.shard_decode_state(state, 2)
+    for s in range(2):
+        t, st = tok0[s::2], parts[s]
+        for i in range(3):
+            t, st = step(tp, st, t)
+            assert torch.equal(t, whole_toks[i][s::2])
+        parts[s] = st
+    merged = serve.merge_decode_states(parts)
+    assert torch.equal(merged.ctx_len, whole.ctx_len)
+    for name in ("view_k", "ssm_conv", "ssm_state"):
+        torch.testing.assert_close(getattr(merged, name),
+                                   getattr(whole, name), rtol=1e-5,
+                                   atol=1e-5)
+    # the shards stepped the whole-batch state's tensors in place
+    torch.testing.assert_close(state.ssm_state, whole.ssm_state, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_decode_state_numpy_roundtrip_with_ssm():
+    cfg = jget("mamba2_370m").reduced()
+    jst = jserve.decode_state_init(cfg, batch=3, s_cap=16,
+                                   dtype=jnp.bfloat16)
+    rng = np.random.default_rng(1)
+    jst = jst._replace(
+        ssm_conv=jnp.asarray(rng.standard_normal(jst.ssm_conv.shape),
+                             jnp.bfloat16),
+        ssm_state=jnp.asarray(rng.standard_normal(jst.ssm_state.shape),
+                              jnp.float32),
+        ctx_len=jnp.asarray([3, 0, 16], jnp.int32))
+    st = convert.decode_state_from_numpy(jst, device="cpu")
+    assert st.view_k == () and st.view_v == ()
+    assert st.ssm_conv.dtype == torch.bfloat16
+    assert st.ssm_state.dtype == torch.float32
+    back = convert.decode_state_to_numpy(st)
+    for got, want in zip(back, jst):
+        if isinstance(want, tuple):
+            assert got == ()
+        else:
+            np.testing.assert_array_equal(got, np.asarray(want, got.dtype))
