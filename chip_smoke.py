@@ -43,7 +43,8 @@ Phases, each of which raises on failure (exit code 1):
       G = 3, hd 64 and at the split kernel's edges (contexts of SPLIT - 1,
       SPLIT, SPLIT + 1 and S_cap), at (j)'s decode layers (hymba_1_5b:
       G 5, hd 64, window 1024 and a global layer; qwen2_moe_a2_7b: 16 KV
-      heads, G 1, hd 128; S_cap 2112): contexts off the tile, 0 and
+      heads, G 1, hd 128; paligemma_3b: 1 KV head, G 8, hd 256, 8
+      sequences; S_cap 2112): contexts off the tile, 0 and
       S_cap, a -1 table entry and an all -1 row, strided (as
       ``ops.decode_*`` pass them) and contiguous inputs, the self row
       (the current token's K/V) folded in, and the shortcut route bitwise
@@ -60,9 +61,16 @@ Phases, each of which raises on failure (exit code 1):
       hymba_1_5b's (G 5, hd 64, window 1024 over 1500 tokens, and its
       global layers), at musicgen_medium's (G 1, hd 64, 1000 tokens) and at
       qwen2_moe_a2_7b's prefill layer (16 heads, G 1, hd 128, 8 x 2048
-      tokens), each beside the plain
+      tokens), then with PaliGemma's bidirectional prefix in float32 and
+      bfloat16 (1 KV head, G 16 with its padding, hd 256: prefixes of 1, 7,
+      64 and 100 over 96 and 300 positions, with a window of 16 and a
+      softcap of 20) and at its prefill layer (bfloat16, 8 x 2048
+      positions, prefix 256), each beside the plain
       versions of wrong kernels (the diagonal token dropped, q_offset off
-      by one, the window edge moved by one); each flash line names the
+      by one, the window edge moved by one; with a prefix also the prefix
+      dropped, the prefix keys past the causal tile range skipped and the
+      prefix's window term left out, where each differs from the sound
+      mask at that shape); each flash line names the
       kernel that ran: ``tensor-core`` (bfloat16 at hd 64, 128, 256) or
       ``simt`` (float32, and bfloat16 at hd 16 and 32);
   (d) the flat path at full width: ``ShortcutEH(max_global_depth=16,
@@ -180,7 +188,19 @@ Phases, each of which raises on failure (exit code 1):
       model prefill ms and tokens/s, decode ms per step per route (host
       clock and CUDA events), one profiler trace of a prefill and of a step
       (device busy, idle share, the MoE or SSM span's share), peak memory,
-      and the flash and decode kernels at the model's layer shapes.
+      and the flash and decode kernels at the model's layer shapes;
+      paligemma_3b (18 layers, d 2048, 8 heads over 1 KV head x 256
+      padded to 16 q-groups, gelu MLP 16384, vocab 257216, tied
+      embedding) is served the same way on both routes, each prompt 256
+      seeded patch embeddings and 1792 tokens (18 flash launches a
+      prefill, 36 decode launches a step); its float32 run also holds the
+      prefill's logits to a forward whose attention is the plain version
+      with the prefix, and shows that forward with the prefix dropped past
+      the same limit;
+  (k) the port's example twins (``examples/quickstart_torch.py``,
+      ``mixed_workload_torch.py``, ``serve_paged_torch.py``) at their own
+      defaults on the card, each held to the kernels it must launch; the
+      serving twin must print "outputs identical across paths".
 
 Each phase's wall seconds go on a line of their own.  The flat index is
 dropped before (f), the sharded one before (g), the KV layer before (h),
@@ -910,7 +930,12 @@ def phase_attention(torch, np, seed: int) -> None:
         ("hymba_1_5b widths, global layer", 2, 5, 5, 64, 2112, [2080, 1],
          None, None),
         ("qwen2_moe_a2_7b widths", 2, 16, 1, 128, 2112, [2080, 1500], None,
-         None)]
+         None),
+        # paligemma_3b's decode layer (8 query heads over 1 KV head x 256;
+        # decode tokens sit past the prefix, so no prefix term): 8
+        # sequences at (j)'s S_cap on both routes
+        ("paligemma_3b widths", 8, 1, 8, 256, 2112,
+         [2080, 1500, 2112, 2064, 0, 1, 700, 2047], None, None)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, KV, G, hd, S, ctx, window, softcap in cases:
             def randn(*shape):
@@ -1039,23 +1064,95 @@ FLASH_MODEL_CASES = [
 ]
 
 
-def flash_wrong_variants(torch, want, q, k, v, window=None, softcap=None):
+# (c), flash attention with PaliGemma's bidirectional prefix: name, q shape,
+# Skv (= Sq), prefix_len, window, softcap, input scale, sequences held to the
+# plain version (None: all).  PaliGemma's layout (one KV head, G 16 with its
+# padding, hd 256): a tensor-core CTA covers 8 positions and a SIMT one 4,
+# so prefixes of 1, 7 and 100 end inside a CTA, and 100 reaches past the
+# first 64-key tile; windows of 16 and a softcap of 20 beside the prefix;
+# then PaliGemma's prefill layer (8 x 2048 positions, prefix 256)
+FLASH_PREFIX_CASES = [
+    (f"prefix {P}, S {S}", (2, 1, 16, S, 256), S, P, None, None, 1.0, None)
+    for P in (1, 7, 64, 100) for S in (96, 300)] + [
+    ("prefix 100, window 16", (2, 1, 16, 300, 256), 300, 100, 16, None, 1.0,
+     None),
+    ("prefix 7, window 16", (2, 1, 16, 96, 256), 96, 7, 16, None, 1.0, None),
+    ("prefix 64, softcap 20", (2, 1, 16, 300, 256), 300, 64, None, 20.0, 3.0,
+     None),
+    ("prefix 100, window 16, softcap 20", (2, 1, 16, 300, 256), 300, 100, 16,
+     20.0, 3.0, None)]
+FLASH_PALIGEMMA_CASE = ("paligemma_3b prefill layer", (8, 1, 16, 2048, 256),
+                        2048, 256, None, None, 1.0, 2)
+
+
+def flash_wrong_variants(torch, want, q, k, v, window=None, softcap=None,
+                         prefix_len=0):
     """The plain version of three wrong flash kernels on the same inputs (q
     (B, KV, G, Sq, hd), k/v (B, KV, Skv, hd)): the diagonal token dropped,
     q_offset off by one, and (with ``window``) the window edge moved out by
-    one.  Each must go past ``attn_limit`` of ``want``; returns each one's
-    |err| / limit."""
+    one, each with the call's prefix.  Each must go past ``attn_limit`` of
+    ``want``; returns each one's |err| / limit.  One whose mask equals the
+    sound one is no wrong kernel at this shape and is left out (q_offset
+    off by one where a prefix covers every position)."""
     from repro_torch.kernels import ref
     Sq, Skv, dev = q.shape[3], k.shape[2], q.device
-    mask = ref.flash_mask(Sq, Skv, window=window, device=dev)
+    kw = dict(prefix_len=prefix_len, device=dev)
+    mask = ref.flash_mask(Sq, Skv, window=window, **kw)
     diag = (torch.arange(Sq, device=dev)[:, None] + Skv - Sq
             == torch.arange(Skv, device=dev)[None, :])
     masks = {"diagonal token dropped": mask & ~diag,
              "q_offset off by one": ref.flash_mask(
-                 Sq, Skv, window=window, q_offset=Skv - Sq - 1, device=dev)}
+                 Sq, Skv, window=window, q_offset=Skv - Sq - 1, **kw)}
     if window is not None:
         masks["window edge moved by one"] = ref.flash_mask(
-            Sq, Skv, window=window + 1, device=dev)
+            Sq, Skv, window=window + 1, **kw)
+    return held_apart(torch, want, q, k, v, {
+        name: m for name, m in masks.items() if not torch.equal(m, mask)},
+        softcap)
+
+
+def prefix_wrong_masks(torch, Sq, Skv, G, hd, kernel, prefix_len,
+                       window=None, device=None) -> dict:
+    """The masks of three wrong prefix kernels: the prefix dropped (the mask
+    plain causal), the prefix keys past the causal tile range skipped (the
+    ``kernel``'s tile range left unwidened: 128 rows a CTA and 64-key tiles
+    at hd 256 (128 below) for ``tensor-core``, 64 rows and 64 keys for
+    ``simt``), and (with ``window``) the prefix's window term left out.
+    Those equal to the sound mask at this shape are left out: they are no
+    wrong kernel here."""
+    from repro_torch.kernels import ref
+    P, off = prefix_len, Skv - Sq
+    rows, bk = ((128, 64 if hd == 256 else 128) if kernel == "tensor-core"
+                else (64, 64))
+    assert rows % G == 0, "a CTA must hold whole positions"
+    mask = ref.flash_mask(Sq, Skv, window=window, prefix_len=P,
+                          device=device)
+    qpos = torch.arange(Sq, device=device) + off
+    kpos = torch.arange(Skv, device=device)
+    cta = torch.arange(Sq, device=device) * G // rows
+    q_lo = cta * rows // G + off
+    q_hi = (torch.clamp((cta + 1) * rows, max=Sq * G) - 1) // G + off
+    t_hi = torch.clamp(q_hi // bk + 1, max=-(-Skv // bk))
+    t_lo = (torch.clamp(q_lo - window + 1, min=0) // bk if window is not None
+            else torch.zeros_like(q_lo))
+    in_range = ((kpos[None, :] >= (t_lo * bk)[:, None])
+                & (kpos[None, :] < (t_hi * bk)[:, None]))
+    masks = {"prefix dropped": ref.flash_mask(Sq, Skv, window=window,
+                                              device=device),
+             "prefix keys past the causal tile range skipped":
+                 mask & in_range}
+    if window is not None:
+        causal = ref.flash_mask(Sq, Skv, prefix_len=P, device=device)
+        masks["the prefix's window term left out"] = causal & (
+            kpos[None, :] > qpos[:, None] - window)
+    return {name: m for name, m in masks.items() if not torch.equal(m, mask)}
+
+
+def held_apart(torch, want, q, k, v, masks, softcap) -> dict:
+    """Each wrong kernel's plain version (``masks``: name -> its (Sq, Skv)
+    mask) on the inputs of ``want``: each must go past ``attn_limit`` of
+    ``want``; returns each one's |err| / limit."""
+    from repro_torch.kernels import ref
     out = {}
     for name, m in masks.items():
         bad = ref.flash_attention_masked(q, k, v, m, softcap)
@@ -1077,9 +1174,11 @@ def phase_flash(torch, seed: int) -> None:
     gemma2_27b's widths (16 KV heads, G 2, hd 128) with window 4096 and
     softcap 50 over 8192 tokens, at hymba_1_5b's (KV 5, G 5, hd 64, window
     1024 over 1500 tokens) and at musicgen_medium's (24 heads, G 1, hd 64,
-    1000 tokens); each line names the kernel that ran (``tensor-core`` or
+    1000 tokens); then float32 and bfloat16 at ``FLASH_PREFIX_CASES``
+    (PaliGemma's bidirectional prefix) and bfloat16 at PaliGemma's prefill
+    layer; each line names the kernel that ran (``tensor-core`` or
     ``simt``); at each shape the wrong kernels' plain versions go past the
-    limit."""
+    limit (with a prefix, also those of ``prefix_wrong_masks``)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention, kernel_path
     dev = torch.device("cuda")
@@ -1096,28 +1195,38 @@ def phase_flash(torch, seed: int) -> None:
         q = qm.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
         return qm, km, vm, q, km.transpose(1, 2), vm.transpose(1, 2)
 
-    def check(name, shape, skv, window, softcap, dtype, scale, n_plain=None):
+    def check(name, shape, skv, window, softcap, dtype, scale, n_plain=None,
+              prefix_len=0):
         qm, km, vm, q, k, v = model_layout(shape, skv, dtype, scale)
         B, KV, G, Sq, hd = shape
         n = B if n_plain is None else n_plain
+        kw = dict(window=window, softcap=softcap, prefix_len=prefix_len)
         want = ref.flash_attention_ref(q[:n], k[:n], v[:n], causal=True,
-                                       window=window, softcap=softcap)
-        got = ops.mha_forward(qm, km, vm, window=window, softcap=softcap)
+                                       **kw)
+        got = ops.mha_forward(qm, km, vm, **kw)
         got = got.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
         checks = [close(torch, got[:n], want)]
         del got
         if n_plain is None:
             got = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), window=window,
-                                  softcap=softcap)
+                                  v.contiguous(), **kw)
             checks.append(close(torch, got, want))
             del got
         margins = flash_wrong_variants(torch, want, q[:n], k[:n], v[:n],
-                                       window, softcap)
+                                       window, softcap, prefix_len)
+        prefix = ""
+        if prefix_len:
+            masks = prefix_wrong_masks(torch, Sq, skv, G, hd,
+                                       kernel_path(dtype, hd), prefix_len,
+                                       window, dev)
+            margins.update(held_apart(torch, want, q[:n], k[:n], v[:n],
+                                      masks, softcap))
+            prefix = f", prefix {prefix_len}"
         ratio, err = map(max, zip(*checks))
         log(f"(c) flash kernel ({kernel_path(dtype, hd)}) == plain "
             f"({str(dtype)[6:]}, {name}: q "
             f"{tuple(shape)}, Skv {skv}, window {window}, softcap {softcap}"
+            f"{prefix}"
             f"{'' if n_plain is None else f'; plain on {n} of {B} sequences'}"
             f"): max |err| {err:.3g}, |err| / limit {ratio:.3g}; wrong "
             "kernels' |err| / limit "
@@ -1129,6 +1238,15 @@ def phase_flash(torch, seed: int) -> None:
     for name, shape, skv, window, softcap, n_plain in FLASH_MODEL_CASES:
         check(name, shape, skv, window, softcap, torch.bfloat16, 1.0,
               n_plain=n_plain)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, skv, P, window, softcap, scale, n_plain in \
+                FLASH_PREFIX_CASES:
+            check(name, shape, skv, window, softcap, dtype, scale, n_plain,
+                  prefix_len=P)
+    name, shape, skv, P, window, softcap, scale, n_plain = \
+        FLASH_PALIGEMMA_CASE
+    check(name, shape, skv, window, softcap, torch.bfloat16, scale, n_plain,
+          prefix_len=P)
     torch.cuda.synchronize()
 
 
@@ -2225,44 +2343,66 @@ def _leaves(tree):
 
 def measure_flash(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> tuple:
     """The flash kernel at the prefill layer shape of ``phase``'s model
-    (``mres["cfg"]``; batch and prompt from ``c``), causal without a window,
+    (``mres["cfg"]``; batch and prompt from ``c``; its padded heads, as the
+    model calls it), causal without a window and with the model's prefix,
     on seeded bfloat16 operands in the model layout: its time, the plain
-    version's and ``scaled_dot_product_attention``'s (causal, GQA) on the
-    same tensors, the largest difference from plain, and its bound."""
+    version's and ``scaled_dot_product_attention``'s (causal, GQA; with a
+    prefix, the plain version's boolean mask) on the same tensors, the
+    largest difference from plain, and its bound; with padded heads, also
+    the kernel's time on the live heads alone."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import kernel_path
+    from repro_torch.models import attention as attn
     cfg = mres["cfg"]
     B, S = c["batch"], c["prompt"]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    P = cfg.prefix_len if cfg.input_mode == "prefix_embeddings" else 0
+    _, G, KV, Gp = attn._padding(cfg)
+    H, hd = KV * Gp, cfg.resolved_head_dim
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     qm, km, vm = (torch.randn((B, S, n, hd), generator=gen, device=dev)
                   .to(torch.bfloat16) for n in (H, KV, KV))
-    ms, got = timer(lambda: ops.mha_forward(qm, km, vm))
+    ms, got = timer(lambda: ops.mha_forward(qm, km, vm, prefix_len=P))
     q = qm.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
     plain_ms, want = timer(lambda: ref.flash_attention_ref(
-        q, km.transpose(1, 2), vm.transpose(1, 2)), reps=1, warmup=1)
+        q, km.transpose(1, 2), vm.transpose(1, 2), prefix_len=P), reps=1,
+        warmup=1)
     got = got.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
     ratio, err = close(torch, got, want)
+    sdpa = dict(is_causal=True)
+    if P:
+        sdpa = dict(attn_mask=ref.flash_mask(S, S, prefix_len=P, device=dev))
     lib_ms, lib = timer(lambda: F.scaled_dot_product_attention(
         qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
-        is_causal=True, enable_gqa=True))
+        enable_gqa=True, **sdpa))
     lib = lib.reshape(B, KV, H // KV, S, hd)
     lib_ratio, lib_err = err_ratio(torch, lib, want)
-    flops = 4 * B * H * hd * S * (S + 1) // 2
+    # visible (query, key) pairs: the causal triangle and, with a prefix,
+    # the prefix's pairs above the diagonal
+    pairs = S * (S + 1) // 2 + P * (P - 1) // 2
+    flops = 4 * B * H * hd * pairs
     bytes_ = 2 * (qm.nbytes + km.nbytes)        # q, k, v read; out written
     bound = max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3
+    padded = ""
+    if Gp != G:
+        live = qm.reshape(B, S, KV, Gp, hd)[:, :, :, :G].reshape(
+            B, S, KV * G, hd).contiguous()
+        live_ms, _ = timer(lambda: ops.mha_forward(live, km, vm,
+                                                   prefix_len=P))
+        padded = (f"; {Gp - G} of the {Gp} q-groups are padding (dead "
+                  f"heads): the live {G} alone take {live_ms:.4f} ms")
     log(f"({phase}) flash kernel ({kernel_path(qm.dtype, hd)}) at the prefill "
         f"layer shape (q {tuple(qm.shape)}, "
-        f"k/v {tuple(km.shape)}, bfloat16): {ms:.4f} ms per layer call; "
-        f"plain {plain_ms:.4f} ms; scaled_dot_product_attention(is_causal, "
+        f"k/v {tuple(km.shape)}, prefix {P}, bfloat16): {ms:.4f} ms per "
+        f"layer call; plain {plain_ms:.4f} ms; scaled_dot_product_attention("
+        f"{'is_causal' if not P else 'the prefix mask'}, "
         f"enable_gqa) {lib_ms:.4f} ms (|err| vs plain {lib_err:.3g}, / limit "
         f"{lib_ratio:.3g}); bound {bound:.4f} ms "
         f"({flops} flops at 989 TFLOP/s, {bytes_} B at 3.35 TB/s); kernel "
         f"|err| vs plain {err:.3g} (/ limit {ratio:.3g}); "
         f"{flops / ms / 1e9:.1f} TFLOP/s achieved, "
-        f"{100 * bound / ms:.1f}% of the bound")
+        f"{100 * bound / ms:.1f}% of the bound" + padded)
     return ("flash_attention", "src/repro/kernels/flash_attention.py:122",
             ms, plain_ms, bytes_, err, lib_ms, flops)
 
@@ -2423,6 +2563,11 @@ FAMILY_MODELS = {
     "qwen2_moe_a2_7b": (("shortcut", "paged"), 24, 48, 2),
     "hymba_1_5b": (("shortcut",), 32, 64, 8),
     "mamba2_370m": (("shortcut",), 0, 0, 8),
+    # PaliGemma's decoder (18 layers, d 2048, 8 heads over 1 KV head x 256,
+    # gelu MLP 16384, vocab 257216): each prompt 256 seeded patch
+    # embeddings and 1792 tokens, so the prefill has the same 8 x 2048
+    # positions; both routes
+    "paligemma_3b": (("shortcut", "paged"), 18, 36, 8),
 }
 # (j): bfloat16 decode logits cannot be held to a full forward at these
 # depths with random weights: the models amplify a rounding, so that one
@@ -2436,11 +2581,14 @@ FAMILY_MODELS = {
 # times that.  Roundings a layer (PERF.md counts them): qwen2_moe 20
 # (attention 6, the routed experts and the shared MLP 14), hymba 24
 # (attention 6, SSM 12, MLP 4, the mix and the residual 2), mamba2 13 (SSM
-# 12, the residual).  A decode with the rope position off by one, from a
+# 12, the residual), paligemma 12 (attention 6, the gelu MLP 4, the two
+# residual sums 2).  A decode with the rope position off by one, from a
 # zeroed SSM state, or with the top-k weights left un-renormalized goes
-# past it
+# past it.  For paligemma the same limit also holds the float32 prefill's
+# logits to those of a forward whose attention is the plain version with
+# the prefix, and the same forward with the prefix dropped goes past it
 FAMILY_ROUNDINGS = {"qwen2_moe_a2_7b": 20, "hymba_1_5b": 24,
-                    "mamba2_370m": 13}
+                    "mamba2_370m": 13, "paligemma_3b": 12}
 F32_ROUNDING = 2 ** -24 / 3 ** 0.5
 # (j): the largest share of the float32 decode steps' top-k choices that
 # may differ from the full forward's own at the same position: ties at
@@ -2449,9 +2597,14 @@ F32_ROUNDING = 2 ** -24 / 3 ** 0.5
 FLIP_SHARE_LIMIT = 0.01
 
 
-def family_limit(arch: str, layers: int, sensitivity: float) -> float:
-    return 3 * (FAMILY_ROUNDINGS[arch] * layers) ** 0.5 * F32_ROUNDING \
+def family_limit(arch: str, layers: int, sensitivity: float,
+                 rounding: float = F32_ROUNDING) -> float:
+    return 3 * (FAMILY_ROUNDINGS[arch] * layers) ** 0.5 * rounding \
         * sensitivity
+
+
+# a bfloat16 rounding (RMS), as LOGIT_LIMIT counts it: 2^-9 / sqrt(3)
+BF16_ROUNDING = 2 ** -9 / 3 ** 0.5
 
 
 class RouteLog:
@@ -2526,7 +2679,7 @@ def bumped_embed(torch, params, seed: int) -> float:
 
 def serve_family(torch, cfg, params, toks, routes, spans, dtype,
                  timed: bool, variants=(), log_routes: bool = False,
-                 c=FAMILY_CONFIG) -> dict:
+                 c=FAMILY_CONFIG, prefix=None) -> dict:
     """The server run of one model ((h), (j)): ``make_prefill_step`` (three
     calls when ``timed``: a warm-up, a timed one and a traced one; else
     one), then ``c``'s steps of greedy decode per route (timed: host clock
@@ -2535,15 +2688,20 @@ def serve_family(torch, cfg, params, toks, routes, spans, dtype,
     launches of the port's kernels.  At the last step the route's logits
     as the step computes them, and on the shortcut route those of the wrong
     ``variants``.  With ``log_routes``, the MoE router's choices in the
-    first prefill and in each route's steps."""
+    first prefill and in each route's steps.  ``prefix``: a prefix model's
+    patch embeddings (B, prefix_len, D) in front of ``toks``."""
     from repro_torch.kernels import _build, _decode
     from repro_torch.kvcache import paged_cache as pc
     from repro_torch.models import model as M
     from repro_torch.models import moe, ssm
     from repro_torch.runtime import serve
     dev = toks.device
-    P, steps, bs, s_cap = (c[k] for k in ("prompt", "steps", "block",
-                                          "s_cap"))
+    steps, bs, s_cap = (c[k] for k in ("steps", "block", "s_cap"))
+    batch = {"tokens": toks}
+    if prefix is not None:
+        batch["prefix_embeddings"] = prefix
+    # positions in the context after prefill
+    P = toks.shape[1] + (0 if prefix is None else prefix.shape[1])
     B, L = toks.shape[0], cfg.num_layers
     flash_n = L if cfg.has_attention else 0
     decode_n = _decode.KERNELS_PER_CALL * L if cfg.has_attention else 0
@@ -2557,13 +2715,13 @@ def serve_family(torch, cfg, params, toks, routes, spans, dtype,
         t0 = time.perf_counter()
         if i == 2:
             (logits, state), *out["prefill_trace"] = profiled(
-                torch, lambda: prefill(params, {"tokens": toks}), spans)
+                torch, lambda: prefill(params, batch), spans)
         elif i == 0 and log_routes:
             with RouteLog(moe) as rl:
-                logits, state = prefill(params, {"tokens": toks})
+                logits, state = prefill(params, batch)
             out["prefill_routes"] = rl.calls
         else:
-            logits, state = prefill(params, {"tokens": toks})
+            logits, state = prefill(params, batch)
         torch.cuda.synchronize()
         out["prefill_s"].append(time.perf_counter() - t0)
     want = {"flash_attention": calls * flash_n} if flash_n else {}
@@ -2573,6 +2731,8 @@ def serve_family(torch, cfg, params, toks, routes, spans, dtype,
     out["prefill_launches"] = flash_n
     assert torch.isfinite(logits.float()).all(), f"(j) {cfg.name}: prefill"
     assert logits.shape == (B, cfg.vocab_size)
+    assert state.ctx_len.tolist() == [P] * B
+    out["prefill_logits"] = logits
     if cfg.has_attention:
         assert state.view_k.shape == (L, B, cfg.num_kv_heads, s_cap,
                                       cfg.resolved_head_dim)
@@ -2668,16 +2828,53 @@ def serve_family(torch, cfg, params, toks, routes, spans, dtype,
     return out
 
 
-def full_forward(torch, cfg, params, toks, fed, force=None) -> tuple:
-    """The last-position logits of a full forward over prompt + the fed
-    tokens (the steps' input), and the MoE router's own choices per layer;
-    ``force``: the experts each layer takes instead (``RouteLog``)."""
+def full_forward(torch, cfg, params, toks, fed, force=None,
+                 prefix=None) -> tuple:
+    """The last-position logits of a full forward over (prefix +) prompt +
+    the fed tokens (the steps' input), and the MoE router's own choices per
+    layer; ``force``: the experts each layer takes instead (``RouteLog``)."""
     from repro_torch.models import model as M
     from repro_torch.models import moe
-    full = torch.cat([toks, fed.long()], dim=1)
+    batch = {"tokens": torch.cat([toks, fed.long()], dim=1)}
+    if prefix is not None:
+        batch["prefix_embeddings"] = prefix
     with RouteLog(moe, force=force) as rl:
-        want, _ = M.prefill_forward(params, cfg, {"tokens": full})
+        want, _ = M.prefill_forward(params, cfg, batch)
     return want, rl.calls
+
+
+def plain_attention(prefix: int):
+    """A stand-in for ``models.attention.blockwise_attention`` (same
+    arguments) that attends through the flash kernel's plain version,
+    ``ref.flash_attention_ref``, with a prefix of ``prefix`` positions (the
+    call's own ``prefix_len`` is ignored): the yardstick of the prefix mask
+    on the model path."""
+    from repro_torch.kernels import ref
+
+    def attend(q, k, v, *, chunk_q, chunk_kv, causal=True, window=None,
+               attn_softcap=None, prefix_len=0):
+        del chunk_q, chunk_kv, prefix_len
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        qk = q.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+        o = ref.flash_attention_ref(qk, k.transpose(1, 2), v.transpose(1, 2),
+                                    causal=causal, window=window,
+                                    softcap=attn_softcap, prefix_len=prefix)
+        return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return attend
+
+
+def forward_with_attention(cfg, params, batch, attention):
+    """The prefill's last-position logits with every layer's prefill
+    attention replaced by ``attention`` for this call only."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    kernel = attn.blockwise_attention
+    attn.blockwise_attention = attention
+    try:
+        return M.prefill_forward(params, cfg, batch)[0]
+    finally:
+        attn.blockwise_attention = kernel
 
 
 def phase_family(torch, args, arch: str, timer) -> dict:
@@ -2712,8 +2909,15 @@ def phase_family(torch, args, arch: str, timer) -> dict:
     res["init_s"] = time.perf_counter() - t0
     res["n_params"] = sum(t.numel() for t in _leaves(params))
     gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
-    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+    # a prefix model's prompt: its patch embeddings (normal, times 0.02, as
+    # repro/launch/serve.py draws them), then the tokens
+    n_prefix = cfg.prefix_len if cfg.input_mode == "prefix_embeddings" else 0
+    toks = torch.randint(0, cfg.vocab_size, (B, P - n_prefix), generator=gen,
                          device=dev)
+    prefix = None
+    if n_prefix:
+        prefix = torch.randn((B, n_prefix, cfg.d_model), generator=gen,
+                             device=dev) * 0.02
     log(f"(j) {arch}: {L} layers, d {cfg.d_model}, heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads} x {cfg.resolved_head_dim}, window "
         f"{cfg.sliding_window} (global layers {cfg.global_layers}), d_ff "
@@ -2721,9 +2925,11 @@ def phase_family(torch, args, arch: str, timer) -> dict:
         f"{cfg.moe_d_ff} + shared {cfg.shared_d_ff} (capacity factor "
         f"{cfg.capacity_factor}), SSM state {cfg.ssm_state} x heads "
         f"{cfg.ssm_heads if cfg.has_ssm else 0} x {cfg.ssm_head_dim} (chunk "
-        f"{cfg.ssm_chunk}), vocab {cfg.vocab_size}; {res['n_params']} "
-        f"parameters (bfloat16; router, A_log, D, dt_bias float32) drawn on "
-        f"the card in {res['init_s']:.3f} s")
+        f"{cfg.ssm_chunk}), vocab {cfg.vocab_size}, prefix {n_prefix} patch "
+        f"embeddings + {P - n_prefix} tokens a prompt, q-groups padded to "
+        f"{cfg.pad_q_groups or cfg.num_heads // max(cfg.num_kv_heads, 1)}; "
+        f"{res['n_params']} parameters (bfloat16; router, A_log, D, dt_bias "
+        f"float32) drawn on the card in {res['init_s']:.3f} s")
     spans = tuple(name for name, on in ((moe.SPAN, cfg.num_experts),
                                         (ssm.SPAN, cfg.has_ssm)) if on)
     variants = tuple(name for name, on in (
@@ -2732,7 +2938,7 @@ def phase_family(torch, args, arch: str, timer) -> dict:
         ("top-k weights not renormalized", cfg.num_experts)) if on)
     served = serve_family(torch, cfg, params, toks, routes, spans,
                           torch.bfloat16, timed=True,
-                          log_routes=bool(cfg.num_experts))
+                          log_routes=bool(cfg.num_experts), prefix=prefix)
     assert served["prefill_launches"] == flash_n
     assert served["decode_launches"] == decode_n
     if "paged" in routes:
@@ -2766,17 +2972,26 @@ def phase_family(torch, args, arch: str, timer) -> dict:
     bf = served
     if cfg.num_experts:
         bf = serve_family(torch, check_cfg, params, toks, ("shortcut",), (),
-                          torch.bfloat16, timed=False, log_routes=True)
+                          torch.bfloat16, timed=False, log_routes=True,
+                          prefix=prefix)
     fed = bf["shortcut"][:, :steps]
-    want, own = full_forward(torch, check_cfg, params, toks, fed)
+    want, own = full_forward(torch, check_cfg, params, toks, fed,
+                             prefix=prefix)
     res["bf16_error"] = rel_rms(torch, bf["shortcut_logits"], want)
     if cfg.num_experts:
         res["bf16_flips"] = fed_flips(bf["shortcut_routes"], own, L, P,
                                       steps)
         res["bf16_choices"] = steps * L * B * cfg.top_k
     res["bf16_bump"] = bumped_embed(torch, params, args.seed + 11)
-    bumped, _ = full_forward(torch, check_cfg, params, toks, fed)
+    bumped, _ = full_forward(torch, check_cfg, params, toks, fed,
+                             prefix=prefix)
     res["bf16_moved"] = rel_rms(torch, bumped, want)
+    # LOGIT_LIMIT's count at this model's roundings and measured gain: where
+    # it stays under LOGIT_LIMIT, the bfloat16 decode is held to
+    # LOGIT_LIMIT as (h)'s is
+    res["bf16_gain"] = res["bf16_moved"] / res["bf16_bump"]
+    res["bf16_count"] = family_limit(arch, L, res["bf16_gain"],
+                                     BF16_ROUNDING)
     del params, want, bumped, bf, own
     gc.collect()
     torch.cuda.empty_cache()
@@ -2785,9 +3000,10 @@ def phase_family(torch, args, arch: str, timer) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, args.seed, torch.float32, device=dev)
     ctoks = toks[:n_check]
+    cprefix = None if prefix is None else prefix[:n_check]
     check = serve_family(torch, check_cfg, params, ctoks, ("shortcut",), (),
                          torch.float32, timed=False, variants=variants,
-                         log_routes=bool(cfg.num_experts))
+                         log_routes=bool(cfg.num_experts), prefix=cprefix)
     fed = check["shortcut"][:, :steps]
     force = None
     if cfg.num_experts:
@@ -2796,9 +3012,24 @@ def phase_family(torch, args, arch: str, timer) -> dict:
         force = [torch.cat([check["prefill_routes"][j]] + [
             check["shortcut_routes"][t * L + j] for t in range(steps)],
             dim=1) for j in range(L)]
-    want, own = full_forward(torch, check_cfg, params, ctoks, fed, force)
+    want, own = full_forward(torch, check_cfg, params, ctoks, fed, force,
+                             prefix=cprefix)
+    if n_prefix:
+        # the prefill through the kernels against a forward whose attention
+        # is the plain version with the prefix, and the same forward with
+        # the prefix dropped
+        batch = {"tokens": ctoks, "prefix_embeddings": cprefix}
+        yard = forward_with_attention(check_cfg, params, batch,
+                                      plain_attention(n_prefix))
+        dropped = forward_with_attention(check_cfg, params, batch,
+                                         plain_attention(0))
+        res["prefix"] = {
+            "kernels": rel_rms(torch, check["prefill_logits"], yard),
+            "prefix dropped": rel_rms(torch, dropped, yard)}
+        del yard, dropped
     bump = bumped_embed(torch, params, args.seed + 11)
-    bumped, _ = full_forward(torch, check_cfg, params, ctoks, fed, force)
+    bumped, _ = full_forward(torch, check_cfg, params, ctoks, fed, force,
+                             prefix=cprefix)
     res["f32_bump"] = bump
     res["f32_moved"] = rel_rms(torch, bumped, want)
     res["sensitivity"] = res["f32_moved"] / bump
@@ -2833,6 +3064,21 @@ def phase_family(torch, args, arch: str, timer) -> dict:
                 f"(j) {arch}: a float32 decode with the {v} is within the "
                 f"limit: {e} <= {res['limit']}")
     assert set(res["wrong"]) == set(variants), res["wrong"]
+    if res["bf16_count"] <= LOGIT_LIMIT and \
+            not res["bf16_error"] <= LOGIT_LIMIT:
+        raise AssertionError(
+            f"(j) {arch}: bfloat16 decode logits off the full forward by "
+            f"{res['bf16_error']} (relative RMS) > {LOGIT_LIMIT}")
+    if n_prefix:
+        if not res["prefix"]["kernels"] <= res["limit"]:
+            raise AssertionError(
+                f"(j) {arch}: float32 prefill logits off the plain-attention "
+                f"forward by {res['prefix']['kernels']} > {res['limit']}")
+        if not res["prefix"]["prefix dropped"] > res["limit"]:
+            raise AssertionError(
+                f"(j) {arch}: the plain-attention forward with the prefix "
+                f"dropped is within the limit: "
+                f"{res['prefix']['prefix dropped']} <= {res['limit']}")
     if cfg.num_experts:
         share = res["flips_fed"] / res["choices"][0]
         if not share <= FLIP_SHARE_LIMIT:
@@ -2874,10 +3120,16 @@ def log_family_checks(res) -> None:
         f"{res['bf16_choices']} (bfloat16 ties)")
     run = "served run" if "bf16_flips" not in res else (
         f"run at capacity factor {cfg.num_experts / cfg.top_k}")
+    held = ("under it: the bfloat16 decode is held to LOGIT_LIMIT"
+            if res["bf16_count"] <= LOGIT_LIMIT else
+            "past it: the float32 run below is the check")
     log(f"(j) {arch}: bfloat16 {run}, last-step logits off a bfloat16 "
         f"full forward by {res['bf16_error']:.4g} (relative RMS); the full "
         f"forward itself moves by {res['bf16_moved']:.4g} when one ulp of "
-        f"the embedding moves ({res['bf16_bump']:.3g} of it)" + flips)
+        f"the embedding moves ({res['bf16_bump']:.3g} of it): gain "
+        f"{res['bf16_gain']:.4g}, so LOGIT_LIMIT's count at this model's "
+        f"roundings is {res['bf16_count']:.4g} against LOGIT_LIMIT "
+        f"{LOGIT_LIMIT}, {held}" + flips)
     log(f"(j) {arch}: float32 check run ({n} of the prompts), last-step "
         f"logits off the float32 full forward (logit RMS "
         f"{res['want_rms']:.4f}): "
@@ -2886,6 +3138,13 @@ def log_family_checks(res) -> None:
         f"full forward moves by {res['f32_moved']:.3g} when one ulp of the "
         f"embedding moves, {res['f32_bump']:.3g} of it); wrong variants "
         + ", ".join(f"{v} {x:.4g}" for v, x in res["wrong"].items()))
+    if "prefix" in res:
+        log(f"(j) {arch}: float32 prefill's last-position logits off a "
+            f"forward whose attention is the plain version with the prefix "
+            f"({cfg.prefix_len}): {res['prefix']['kernels']:.4g}; that "
+            f"forward with the prefix dropped: "
+            f"{res['prefix']['prefix dropped']:.4g}; limit "
+            f"{res['limit']:.4g}")
 
 
 def report_family(res, smi) -> None:
@@ -2919,6 +3178,49 @@ def report_family(res, smi) -> None:
     log(f"(j) {arch}: max_memory_allocated {res['peak_bytes']} B over init, "
         f"prefill and decode (bfloat16); {res['check_peak_bytes']} B in the "
         f"float32 check run")
+
+
+# (k): the port's example twins (examples/*_torch.py), each run at its own
+# defaults through its main() on the card, and the kernels each must have
+# launched: the index twins insert and look up through the shortcut (the
+# mixed workload's waves replay updates), the serving twin prefills and
+# decodes on both routes
+TWINS = {"quickstart_torch": ("eh_insert", "shortcut_lookup"),
+         "mixed_workload_torch": ("eh_insert", "ragged_copy"),
+         "serve_paged_torch": ("flash_attention", "shortcut_attention",
+                               "paged_attention")}
+
+
+def phase_twins(torch) -> None:
+    """(k): each twin of ``TWINS`` with its launch counts set to 0 just
+    before it and read just after; its printed lines logged; the serving
+    twin must print that its two access paths gave identical outputs."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import _build
+    for name, kernels in TWINS.items():
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _build.launches()
+        for line in buf.getvalue().splitlines():
+            log(f"(k) {name}: {line}")
+        log(f"(k) {name}: {secs:.3f} s at its defaults; launches {got}")
+        missing = [k for k in kernels if not got.get(k)]
+        assert not missing, f"(k) {name}: no launch of {missing}"
+        if name == "serve_paged_torch":
+            assert "outputs identical across paths" in buf.getvalue(), \
+                f"(k) {name}: no 'outputs identical across paths' line"
 
 
 def phase_families(torch, args, timer, smi) -> None:
@@ -3351,6 +3653,9 @@ def main() -> int:
 
     phase_families(torch, args, timer, smi)
     clock.lap("j")
+
+    phase_twins(torch)
+    clock.lap("k")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,11 +9,17 @@
 //   rounding); an optional softcap cap*tanh(s/cap); then
 //   the masks, in the TPU kernel's order: kpos < Skv, causal qpos >= kpos
 //   with qpos = i + Skv - Sq (q right-aligned), window kpos > qpos - window;
-//   a masked score is -1e30.  The online softmax (m, l, acc) runs in f32
-//   over key tiles, l sums the f32 p, and the output is acc / max(l, 1e-30)
-//   in q's dtype.  A key tile wholly above every row's diagonal, or wholly
-//   below every row's window, is skipped, as the TPU kernel's in_range /
-//   pl.when does.  The -1e30 terms a row picks up in a tile where all its
+//   a masked score is -1e30.  A bidirectional prefix of P positions
+//   (PaliGemma's image tokens; the reference model's mask, for which the
+//   TPU kernel has no argument) widens the causal term by qpos < P and
+//   kpos < P and the window term by kpos < P, on absolute positions: a row
+//   below P sees the whole prefix whatever the tiling.  The online softmax
+//   (m, l, acc) runs in f32 over key tiles, l sums the f32 p, and the
+//   output is acc / max(l, 1e-30) in q's dtype.  A key tile wholly above
+//   every row's diagonal, or wholly below every row's window, is skipped,
+//   as the TPU kernel's in_range / pl.when does; with a prefix, every tile
+//   from key 0 on is visited, up to the prefix's last tile for a CTA with a
+//   row below P.  The -1e30 terms a row picks up in a tile where all its
 //   keys are masked are multiplied by exp(-1e30 - m) = 0 at its first
 //   visible key, so the answer does not depend on the tiling.  Causal calls
 //   with Sq > Skv are refused: their first rows would see no key.
@@ -119,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     long long k_ss, const T* __restrict__ v, long long v_sb, long long v_sh,
     long long v_ss, T* __restrict__ out, long long o_sb, long long o_sh,
     long long o_sg, long long o_ss, int G, int Sq, int Skv, int causal,
-    int window, float softcap, float scale) {
+    int window, int prefix, float softcap, float scale) {
   constexpr int QS = HD + kPad;                 // row stride of Qs and Ks
   constexpr int PS = kKeys + kPad;              // row stride of Ps
   constexpr int VW = HD >= 64 ? 4 : HD / 16;    // columns per vector load
@@ -152,8 +158,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   const int last = min(r0 + kRows, nrows) - 1;
   const int q_lo = r0 / G + q_offset, q_hi = last / G + q_offset;
   const int ntiles = (Skv + kKeys - 1) / kKeys;
-  const int t_hi = causal ? min(ntiles, q_hi / kKeys + 1) : ntiles;
-  const int t_lo = window > 0 ? max(0, q_lo - window + 1) / kKeys : 0;
+  int t_hi = causal ? min(ntiles, q_hi / kKeys + 1) : ntiles;
+  int t_lo = window > 0 ? max(0, q_lo - window + 1) / kKeys : 0;
+  if (prefix > 0) {  // the prefix keys, visible to every row
+    t_lo = 0;
+    if (q_lo < prefix)
+      t_hi = max(t_hi, min(ntiles, (prefix + kKeys - 1) / kKeys));
+  }
 
   float m[4], l[4], acc[4][NV][VW];
 #pragma unroll
@@ -210,8 +221,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         const int kp = k0 + tx + 16 * j;
         bool ok = kp < Skv;
-        if (causal) ok = ok && qpos[i] >= kp;
-        if (window > 0) ok = ok && kp > qpos[i] - window;
+        if (causal)
+          ok = ok && (qpos[i] >= kp || (qpos[i] < prefix && kp < prefix));
+        if (window > 0) ok = ok && (kp > qpos[i] - window || kp < prefix);
         s[i][j] = ok ? x : kNegInf;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -278,8 +290,8 @@ template <typename T, int HD>
 int launch(const void* q, const long long* qs, const void* k,
            const long long* ks, const void* v, const long long* vs,
            void* out, const long long* os, int B, int KV, int G, int Sq,
-           int Skv, int causal, int window, float softcap, float scale,
-           cudaStream_t st) {
+           int Skv, int causal, int window, int prefix, float softcap,
+           float scale, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<HD>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -290,7 +302,8 @@ int launch(const void* q, const long long* qs, const void* k,
       static_cast<const T*>(q), qs[0], qs[1], qs[2], qs[3],
       static_cast<const T*>(k), ks[0], ks[1], ks[2],
       static_cast<const T*>(v), vs[0], vs[1], vs[2], static_cast<T*>(out),
-      os[0], os[1], os[2], os[3], G, Sq, Skv, causal, window, softcap, scale);
+      os[0], os[1], os[2], os[3], G, Sq, Skv, causal, window, prefix, softcap,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,14 +418,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// What the masks of one key tile need to know of a thread's two rows.
+// What the masks of one key tile need to know of a thread's two rows: the
+// masks as two bounds a row.  Key kp is visible when kp <= hi (inside Skv,
+// and causal: at or below max(qpos, prefix - 1), which is the diagonal
+// widened by the prefix) and when kp > lo (the window's edge, qpos - window;
+// -1 without one) or kp < prefix.
 struct Tile {
   int k0;        // key of the thread's first column in the tile
-  int qpos0, qpos1;
-  int Skv, causal, window;
+  int hi0, hi1, lo0, lo1;
+  int prefix;
 };
 
-// S (a thread's accumulator fragment, rows qpos0 and qpos1, columns
+// S (a thread's accumulator fragment, rows 0 and 1 of the Tile, columns
 // k0 + 8 n + {0, 1}) to base-2 scores in place: s * mul (= hd^-0.5 log2 e),
 // or with CAP cap tanh(s * mul) * cap2 (mul = hd^-0.5 / cap, cap2 = cap
 // log2 e); with MASK the masks, a masked score -1e30.  Folds each row's
@@ -429,10 +446,9 @@ __device__ __forceinline__ void scores(float (&s)[NV], float (&mt)[2],
       if constexpr (CAP) x = cap2 * tanhf(x);
       if constexpr (MASK) {
         const int kp = t.k0 + 8 * n + (e & 1);
-        const int qp = e < 2 ? t.qpos0 : t.qpos1;
-        bool ok = kp < t.Skv;
-        if (t.causal) ok = ok && qp >= kp;
-        if (t.window > 0) ok = ok && kp > qp - t.window;
+        const bool first = e < 2;
+        const bool ok = kp <= (first ? t.hi0 : t.hi1) &&
+                        (kp > (first ? t.lo0 : t.lo1) || kp < t.prefix);
         x = ok ? x : kNegInf;
       }
       s[4 * n + e] = x;
@@ -547,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
     long long q_sg, long long q_ss, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
     long long o_sb, long long o_sh, long long o_sg, long long o_ss, int KV,
-    int G, int Sq, int Skv, int causal, int window, float softcap,
+    int G, int Sq, int Skv, int causal, int window, int prefix, float softcap,
     float scale) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, NS = C::NS, CB = C::CB;
@@ -567,8 +583,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
   const int last = min(r0 + kRows, nrows) - 1;
   const int q_lo = r0 / G + q_offset, q_hi = last / G + q_offset;
   const int ntiles = (Skv + BK - 1) / BK;
-  const int t_hi = causal ? min(ntiles, q_hi / BK + 1) : ntiles;
-  const int t_lo = window > 0 ? max(0, q_lo - window + 1) / BK : 0;
+  int t_hi = causal ? min(ntiles, q_hi / BK + 1) : ntiles;
+  int t_lo = window > 0 ? max(0, q_lo - window + 1) / BK : 0;
+  if (prefix > 0) {  // the prefix keys, visible to every row
+    t_lo = 0;
+    if (q_lo < prefix) t_hi = max(t_hi, min(ntiles, (prefix + BK - 1) / BK));
+  }
 
   if (tid == 0) {
 #pragma unroll
@@ -628,7 +648,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
   // columns 8 n + 2 (l % 4) + {0, 1} in registers 4 n + {0, 1} and
   // 4 n + {2, 3})
   const int lr = 64 * wg + 16 * (wtid / 32) + lane / 4;
-  const int qpos[2] = {(r0 + lr) / G + q_offset, (r0 + lr + 8) / G + q_offset};
+  int hi[2], lo[2];  // the two rows' mask bounds (Tile)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = (r0 + lr + 8 * r) / G + q_offset;
+    hi[r] = causal ? min(max(qpos, prefix - 1), Skv - 1) : Skv - 1;
+    lo[r] = window > 0 ? qpos - window : -1;
+  }
   const int col0 = 2 * (lane % 4);
   const uint64_t q_desc = smem_desc(base + wg * 64 * 128, 16, 1024);
   const float sl2 = scale * kLog2e;
@@ -664,16 +690,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
                      p[4 * kk + 3], v_desc + kk * (2048 >> 4));
     wgmma_commit();
   };
-  // tile i's scale, softcap and masks (masks only on a tile crossing the
-  // diagonal, the window edge or Skv), then the online softmax in base 2:
-  // m, l and corr updated, s holding the f32 p
+  // tile i's scale, softcap and masks, then the online softmax in base 2:
+  // m, l and corr updated, s holding the f32 p.  A tile skips the masks
+  // when none can fire for any of the CTA's rows: every key inside Skv,
+  // every key at or below the lowest row's position (or every key and every
+  // row inside the prefix), and every key above the highest row's window
+  // edge (or every key inside the prefix).  So a tile crossing the
+  // diagonal, the window edge, Skv or the prefix's end is masked, and so is
+  // a prefix tile past the diagonal of a CTA that reaches past the prefix.
   float corr[2];
   auto softmax = [&](int i) {
     const int k0 = (t_lo + i) * BK;
-    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q_lo) ||
-                      (window > 0 && k0 <= q_hi - window);
+    const bool keys_in_prefix = k0 + BK <= prefix;
+    const bool edge =
+        k0 + BK > Skv ||
+        (causal && k0 + BK - 1 > q_lo && !(keys_in_prefix && q_hi < prefix)) ||
+        (window > 0 && k0 <= q_hi - window && !keys_in_prefix);
     float mt[2] = {m[0], m[1]};
-    const Tile tile{k0 + col0, qpos[0], qpos[1], Skv, causal, window};
+    const Tile tile{k0 + col0, hi[0], hi[1], lo[0], lo[1], prefix};
     if (softcap > 0.f) {
       const float mul = scale / softcap;
       if (edge) scores<true, true>(s, mt, mul, softcap * kLog2e, tile);
@@ -832,8 +866,8 @@ template <int HD>
 int launch(const void* q, const long long* qs, const void* k,
            const long long* ks, const void* v, const long long* vs,
            void* out, const long long* os, int B, int KV, int G, int Sq,
-           int Skv, int causal, int window, float softcap, float scale,
-           cudaStream_t st) {
+           int Skv, int causal, int window, int prefix, float softcap,
+           float scale, cudaStream_t st) {
   using C = Cfg<HD>;
   const long long row_tiles = (static_cast<long long>(Sq) * G + kRows - 1) /
                               kRows;
@@ -852,7 +886,7 @@ int launch(const void* q, const long long* qs, const void* k,
   flash_tc_kernel<HD><<<grid, kThreads, C::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), qs[0], qs[1], qs[2], qs[3], tm_k,
       tm_v, static_cast<__nv_bfloat16*>(out), os[0], os[1], os[2], os[3], KV,
-      G, Sq, Skv, causal, window, softcap, scale);
+      G, Sq, Skv, causal, window, prefix, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -862,14 +896,14 @@ template <typename T>
 int launch_hd(int hd, const void* q, const long long* qs, const void* k,
               const long long* ks, const void* v, const long long* vs,
               void* out, const long long* os, int B, int KV, int G, int Sq,
-              int Skv, int causal, int window, float softcap, float scale,
-              cudaStream_t st) {
+              int Skv, int causal, int window, int prefix, float softcap,
+              float scale, cudaStream_t st) {
 #define REPRO_SIMT(HD)                                                      \
   return launch<T, HD>(q, qs, k, ks, v, vs, out, os, B, KV, G, Sq, Skv,     \
-                       causal, window, softcap, scale, st)
+                       causal, window, prefix, softcap, scale, st)
 #define REPRO_TC(HD)                                                        \
   return tc::launch<HD>(q, qs, k, ks, v, vs, out, os, B, KV, G, Sq, Skv,    \
-                        causal, window, softcap, scale, st)
+                        causal, window, prefix, softcap, scale, st)
   if constexpr (std::is_same_v<T, float>) {
     switch (hd) {
       case 16: REPRO_SIMT(16);
@@ -909,8 +943,9 @@ extern "C" int flash_tc_smem_bytes(int hd) {
 // g, position); k_strides, v_strides: 3 (b, kv head, position; a 4th entry
 // is ignored); out_strides: 4 as q's.  The last axis of every operand has
 // stride 1.  hd in {16, 32, 64, 128, 256}.  causal: 0 or 1 (with causal,
-// Sq <= Skv); window <= 0: none; softcap <= 0: none; scale: hd^-0.5 rounded
-// to float by the caller.  bfloat16 at hd 64, 128 and 256 takes the
+// Sq <= Skv); window <= 0: none; prefix_len <= 0: none (else the length of
+// the bidirectional prefix); softcap <= 0: none; scale: hd^-0.5 rounded to
+// float by the caller.  bfloat16 at hd 64, 128 and 256 takes the
 // tensor-core kernel, which needs q, k and v 16-byte aligned with strides
 // (of axes longer than 1) in multiples of 16 bytes, and returns 10000 + the
 // CUresult when a tensor map cannot be made (10000: the encoder was not
@@ -919,18 +954,19 @@ extern "C" int flash_attention_launch(
     int bf16, const void* q, const long long* q_strides, const void* k,
     const long long* k_strides, const void* v, const long long* v_strides,
     void* out, const long long* out_strides, int B, int KV, int G, int Sq,
-    int Skv, int hd, int causal, int window, float softcap, float scale,
-    void* stream) {
+    int Skv, int hd, int causal, int window, int prefix_len, float softcap,
+    float scale, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0 || Sq <= 0) return 0;
   if (Skv <= 0 || (causal && Sq > Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  const int prefix = prefix_len > 0 ? prefix_len : 0;
   if (bf16)
     return launch_hd<__nv_bfloat16>(hd, q, q_strides, k, k_strides, v,
                                     v_strides, out, out_strides, B, KV, G,
-                                    Sq, Skv, causal, window, softcap, scale,
-                                    st);
+                                    Sq, Skv, causal, window, prefix, softcap,
+                                    scale, st);
   return launch_hd<float>(hd, q, q_strides, k, k_strides, v, v_strides, out,
                           out_strides, B, KV, G, Sq, Skv, causal, window,
-                          softcap, scale, st);
+                          prefix, softcap, scale, st);
 }

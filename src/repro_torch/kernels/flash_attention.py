@@ -3,7 +3,9 @@
 
 Causal, windowed and softcapped attention of q (B, KV, G, Sq, hd) over k/v
 (B, KV, Skv, hd), GQA folded into the query tile, q right-aligned against
-the keys (``q_offset = Skv - Sq``).  On a CUDA tensor it launches
+the keys (``q_offset = Skv - Sq``), with an optional bidirectional prefix
+(``prefix_len``: PaliGemma's image tokens, the reference model's mask; the
+TPU kernel has no such argument).  On a CUDA tensor it launches
 ``csrc/flash_attention.cu``, whose launcher picks one of two kernels by
 dtype and head_dim (:func:`kernel_path`): bfloat16 at ``TC_HEAD_DIMS`` runs
 on the tensor cores (``wgmma``, K/V tiles by TMA), everything else on the
@@ -23,7 +25,7 @@ from repro_torch.kernels import _build, ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL4 = ctypes.c_longlong * 4
 _SIGNATURES = {"flash_attention_launch": [
-    _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
     ctypes.c_float, ctypes.c_float, _P], "flash_tc_smem_bytes": [_I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -64,7 +66,7 @@ def check_tma(name: str, ptr: int, shape, strides, itemsize: int) -> None:
                              "kernel reads it in 16-byte units)")
 
 
-def _check(q, k, v, causal: bool) -> None:
+def _check(q, k, v, causal: bool, prefix_len: int) -> None:
     if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: expected q (B, KV, G, Sq, hd) "
@@ -78,6 +80,8 @@ def _check(q, k, v, causal: bool) -> None:
     if causal and Sq > k.shape[2]:
         raise ValueError(f"causal with Sq {Sq} > Skv {k.shape[2]}: the "
                          "first rows would see no key")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len {prefix_len} < 0")
     if any(t.requires_grad for t in (q, k, v)):
         raise ValueError("flash_attention is forward only (no backward "
                          "kernel); call it under torch.no_grad()")
@@ -85,10 +89,12 @@ def _check(q, k, v, causal: bool) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None,
+                    softcap: Optional[float] = None, prefix_len: int = 0,
                     bq: int = 256, bkv: int = 512) -> torch.Tensor:
     """q: (B, KV, G, Sq, hd); k/v: (B, KV, Skv, hd), any strides with a
-    contiguous last axis -> (B, KV, G, Sq, hd) in q's dtype.
+    contiguous last axis -> (B, KV, G, Sq, hd) in q's dtype.  Query row i
+    sits at position ``i + Skv - Sq``; with ``prefix_len`` the positions
+    below it see the whole prefix (``ref.flash_mask``).
 
     On CUDA the result is a view of a (B, Sq, KV, G, hd) buffer, the model
     layout, so that ``ops.mha_forward``'s transpose back costs no copy.
@@ -97,11 +103,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     their own sizes and do not pad the ragged tails).  The tensor-core
     kernel raises ``ValueError`` on operands :func:`check_tma` refuses."""
     del bq, bkv
-    _check(q, k, v, causal)
+    prefix_len = int(prefix_len)
+    _check(q, k, v, causal, prefix_len)
     ref._check_window(window)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+                                       softcap=softcap, prefix_len=prefix_len)
     B, KV, G, Sq, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in "
@@ -129,7 +136,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         _DTYPES[q.dtype], q.data_ptr(), _LL4(*q.stride()[:4]), k.data_ptr(),
         _LL4(*k.stride()[:3], 0), v.data_ptr(), _LL4(*v.stride()[:3], 0),
         out.data_ptr(), _LL4(*out.stride()[:4]), B, KV, G, Sq, k.shape[2],
-        hd, int(causal), -1 if window is None else int(window),
+        hd, int(causal), -1 if window is None else int(window), prefix_len,
         -1.0 if softcap is None else float(softcap), hd ** -0.5,
         _build.stream(dev))
     _build.check(err, "flash_attention")

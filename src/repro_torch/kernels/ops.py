@@ -16,19 +16,20 @@ from repro_torch.kernels.ragged_copy import ragged_copy
 
 def mha_forward(q, k, v, *, causal: bool = True,
                 window: Optional[int] = None,
-                softcap: Optional[float] = None,
+                softcap: Optional[float] = None, prefix_len: int = 0,
                 bq: int = 256, bkv: int = 512) -> torch.Tensor:
     """Model-layout flash attention.
 
     q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd).  The kernel
     reads the transposed views in place and writes the model layout, so on
-    CUDA no operand or result is copied."""
+    CUDA no operand or result is copied.  ``prefix_len``: the bidirectional
+    prefix (``flash_attention``)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qk = q.reshape(B, Sq, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
     o = flash_attention(qk, k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=window, softcap=softcap,
-                        bq=bq, bkv=bkv)
+                        prefix_len=prefix_len, bq=bq, bkv=bkv)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 

@@ -209,24 +209,34 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
 # ref.py:16-36``): the full score matrix in float32, masked with -1e30, a
 # softmax, then the value product.  For every row with a visible key this is
 # the TPU kernel's function (its -1e30 terms are corrected away exactly).
+# ``prefix_len`` adds the reference model's bidirectional-prefix terms
+# (``repro/models/attention.py:140-150``), which the TPU kernel has no
+# argument for, on absolute positions: unlike that tiled loop, the mask does
+# not depend on a tile size.
 
 _NEG_INF = -1e30
 
 
 def flash_mask(Sq: int, Skv: int, *, causal: bool = True, window=None,
-               q_offset=None, device=None) -> torch.Tensor:
-    """(Sq, Skv) bool: query row i sits at position ``i + q_offset``
+               q_offset=None, prefix_len: int = 0,
+               device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: query row i sits at position ``qpos = i + q_offset``
     (default ``Skv - Sq``, right-aligned) and sees key ``kpos`` when
-    ``qpos >= kpos`` (causal) and ``kpos > qpos - window``."""
+    ``qpos >= kpos`` (causal) and ``kpos > qpos - window``.  A bidirectional
+    prefix of ``prefix_len`` positions (PaliGemma's image tokens) widens
+    both terms, as the reference model's ``blockwise_attention`` does: the
+    causal one by ``qpos < prefix_len and kpos < prefix_len``, the window
+    one by ``kpos < prefix_len``."""
     _check_window(window)
     off = Skv - Sq if q_offset is None else q_offset
     qpos = torch.arange(Sq, device=device)[:, None] + off
     kpos = torch.arange(Skv, device=device)[None, :]
+    in_prefix = kpos < prefix_len
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
-        mask &= qpos >= kpos
+        mask &= (qpos >= kpos) | ((qpos < prefix_len) & in_prefix)
     if window is not None:
-        mask &= kpos > qpos - window
+        mask &= (kpos > qpos - window) | in_prefix
     return mask
 
 
@@ -247,9 +257,9 @@ def flash_attention_masked(q, k, v, mask, softcap=None) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
-                        softcap=None) -> torch.Tensor:
+                        softcap=None, prefix_len: int = 0) -> torch.Tensor:
     """q: (B, KV, G, Sq, hd); k/v: (B, KV, Skv, hd) -> (B, KV, G, Sq, hd)
     in q's dtype."""
     mask = flash_mask(q.shape[3], k.shape[2], causal=causal, window=window,
-                      device=q.device)
+                      prefix_len=prefix_len, device=q.device)
     return flash_attention_masked(q, k, v, mask, softcap)

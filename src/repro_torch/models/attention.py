@@ -17,8 +17,8 @@ it is :func:`decode_attention`, the reference's XLA computation in plain
 PyTorch, over the view or over the context gathered through the tables.
 
 Supports GQA/MQA, rope, qk-norm (qwen3), the attention logit softcap
-(gemma2), sliding windows and per-layer local/global switching.  The
-bidirectional prefix (PaliGemma, ``prefix_len > 0``) runs on the CPU only.
+(gemma2), sliding windows, per-layer local/global switching and the
+bidirectional prefix (PaliGemma, ``prefix_len > 0``).
 """
 from __future__ import annotations
 
@@ -107,15 +107,17 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``prefix_len`` marks a bidirectional prefix (PaliGemma image tokens):
     positions < prefix_len attend to the whole prefix regardless of order.
-    On CUDA this is the flash kernel, which has no such mask yet, and
-    ``chunk_q``/``chunk_kv`` (the reference's XLA tiles) do not apply."""
+    On CUDA this is the flash kernel, and ``chunk_q``/``chunk_kv`` (the
+    reference's XLA tiles) do not apply: its prefix mask is the one above
+    on absolute positions.  The CPU loop copies the reference's, where a
+    query tile's key range ends at its own last row (rounded up to
+    ``chunk_kv``), so with ``chunk_q < prefix_len`` the rows of a tile that
+    ends before the prefix does miss the prefix keys past that range; at
+    ``chunk_q >= prefix_len`` (PaliGemma's 2048 against 256) the two
+    agree."""
     if q.device.type == "cuda":
-        if prefix_len:
-            raise NotImplementedError(
-                "the CUDA flash kernel has no bidirectional-prefix mask "
-                "(PaliGemma; ROADMAP queue 1 item 1)")
         return ops.mha_forward(q, k, v, causal=causal, window=window,
-                               softcap=attn_softcap)
+                               softcap=attn_softcap, prefix_len=prefix_len)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV

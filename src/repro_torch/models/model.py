@@ -1,5 +1,5 @@
 """Decoder LM (twin of ``repro/models/model.py``): the prefill forward and the
-one-token decode, for every registered family but the PaliGemma prefix.
+one-token decode, for every registered family.
 
 A layer holds attention and/or an SSM mixer (the hybrid averages the two),
 then a dense MLP, or an MoE (with arctic's parallel dense residual).
@@ -10,10 +10,10 @@ reference's ``lax.scan`` over layer runs (and its remat) becomes a plain
 Python loop over the same runs (:func:`layer_runs`), and its
 ``distributed.constrain`` sharding pins have no counterpart on one card.
 
-Not here yet: the PaliGemma prefix input (``prefix_embeddings``, ROADMAP
-queue 1 item 1), which raises ``NotImplementedError`` where the reference
-would run it, and training (``train_forward``, ``chunked_softmax_xent``,
-queue 1 item 3).
+The input is tokens, embeddings, or (PaliGemma) ``prefix_embeddings``
+in front of the tokens, a bidirectional prefix of ``cfg.prefix_len``
+positions in every attention layer.  Not here yet: training
+(``train_forward``, ``chunked_softmax_xent``, ROADMAP queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -28,13 +28,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, softcap)
-
-
-def _require_supported(cfg: ArchConfig) -> None:
-    if cfg.input_mode == "prefix_embeddings":
-        raise NotImplementedError(
-            f"{cfg.name}: the prefix_embeddings input is not ported yet "
-            "(ROADMAP queue 1 item 1: the PaliGemma prefix)")
 
 
 # -- layer kinds / runs --------------------------------------------------------
@@ -82,7 +75,6 @@ def _layer_order(cfg: ArchConfig):
 # -- init ----------------------------------------------------------------------
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
-    _require_supported(cfg)
     p: dict[str, Any] = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
     if cfg.has_attention:
@@ -116,7 +108,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, *,
     """Random parameters drawn from ``seed`` on ``device`` (default
     ``"cuda"``), one layer at a time into the stacked tensors, so that a
     full-width init holds one layer's float32 draws at a time."""
-    _require_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: dict[str, Any] = {
@@ -203,14 +194,21 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig):
 
 # -- full-sequence forward -------------------------------------------------------
 
+def _embed_tokens(params, tokens) -> torch.Tensor:
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    return params["embed"][tokens.long()]
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     if cfg.input_mode == "tokens":
-        tokens = torch.as_tensor(batch["tokens"],
-                                 device=params["embed"].device)
-        return params["embed"][tokens.long()]
+        return _embed_tokens(params, batch["tokens"])
     if cfg.input_mode == "embeddings":
         return batch["embeddings"].to(params["embed"].dtype)
-    _require_supported(cfg)
+    if cfg.input_mode == "prefix_embeddings":
+        tok = _embed_tokens(params, batch["tokens"])
+        prefix = torch.as_tensor(batch["prefix_embeddings"],
+                                 device=tok.device).to(tok.dtype)
+        return torch.cat([prefix, tok], dim=1)
     raise ValueError(cfg.input_mode)
 
 
@@ -226,7 +224,6 @@ def forward_hidden(params, cfg: ArchConfig, batch: dict, *,
     conv_dim) conv windows and (L, B, H, P, N) float32 states (with an
     SSM), else None; ``aux_total`` the router's auxiliary loss summed over
     the layers, () float32."""
-    _require_supported(cfg)
     h = _embed_inputs(params, cfg, batch)
     B, S = h.shape[:2]
     L = cfg.num_layers
@@ -299,8 +296,9 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     Returns (logits (B, V), LayerCache of the new token's (L, B, KV, hd)
     k/v rows (with attention) and the stacked new ``SSMCache`` (with an
     SSM); absent members ()).  The caller appends the rows into its pool
-    (paged) or view (shortcut) and keeps the SSM cache."""
-    _require_supported(cfg)
+    (paged) or view (shortcut) and keeps the SSM cache.  With a prefix
+    (PaliGemma) ``ctx_len`` counts it: a decode token sits past the prefix,
+    so its attention is plain causal."""
     dev = params["embed"].device
     token = torch.as_tensor(token, device=dev).long()
     ctx_len = torch.as_tensor(ctx_len, device=dev)

@@ -50,7 +50,6 @@ class DecodeState(NamedTuple):
 def decode_state_init(cfg: ArchConfig, batch: int, s_cap: int,
                       dtype=torch.bfloat16, *, device=None) -> DecodeState:
     """A zero state on ``device`` (default ``"cuda"``)."""
-    M._require_supported(cfg)
     dev = resolve_device(device)
     L = cfg.num_layers
     vk = vv = sc = ss = ()
@@ -134,8 +133,9 @@ def make_prefill_step(cfg: ArchConfig, s_cap: int,
 
     Runs the full forward once, then lays the per-layer caches out as the
     S_cap-padded shortcut view (the serving layer's *create request*) and
-    keeps the SSM conv windows (in ``dtype``) and float32 states."""
-    M._require_supported(cfg)
+    keeps the SSM conv windows (in ``dtype``) and float32 states.  The
+    context counts a PaliGemma prefix: ``ctx_len`` is ``prefix_len`` + the
+    prompt's tokens, as the reference's is."""
 
     def prefill(params, batch):
         logits, caches = M.prefill_forward(params, cfg, batch)
@@ -160,9 +160,12 @@ def make_prefill_step(cfg: ArchConfig, s_cap: int,
 
 
 def _prompt_len(cfg: ArchConfig, batch: dict) -> int:
-    lead = batch["tokens"] if cfg.input_mode == "tokens" \
-        else batch["embeddings"]
-    return int(lead.shape[1])
+    """Positions in the context after prefill: the prompt's tokens or
+    embeddings, and a prefix model's ``prefix_len`` in front of them."""
+    if cfg.input_mode == "embeddings":
+        return int(batch["embeddings"].shape[1])
+    n = int(batch["tokens"].shape[1])
+    return n + cfg.prefix_len if cfg.input_mode == "prefix_embeddings" else n
 
 
 def _write_row(view: torch.Tensor, idx: torch.Tensor,
@@ -193,7 +196,6 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     token's K/V row goes into position ``ctx_len`` of each sequence, and
     the new SSM conv window and state over the old ones, in place: the
     returned state shares the input's tensors."""
-    M._require_supported(cfg)
 
     def serve_step(params, state: DecodeState, token: torch.Tensor):
         ssm = ssm_mod.SSMCache(conv=state.ssm_conv, state=state.ssm_state) \
@@ -226,7 +228,6 @@ def make_paged_serve_step(cfg: ArchConfig) -> Callable:
     everywhere in the paged cache).  Attention-only models: a model with an
     SSM raises ``NotImplementedError`` (the paged cache holds no SSM state;
     the reference's paged step passes none, and its SSM decode fails)."""
-    M._require_supported(cfg)
     if cfg.has_ssm:
         raise NotImplementedError(
             f"{cfg.name}: the paged route serves attention-only models; "

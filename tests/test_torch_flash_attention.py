@@ -11,7 +11,16 @@ round once).  The port's CPU ``blockwise_attention`` computes the same
 function and is held to the plain version.  On the card, bfloat16 at head
 dims 64, 128 and 256 runs on the tensor cores with p rounded to bfloat16
 for the value product; ``tensor_core_emulation`` rehearses that arithmetic
-here against the Pallas kernel under the same bfloat16 limit."""
+here against the Pallas kernel under the same bfloat16 limit.
+
+The bidirectional prefix (PaliGemma's ``prefix_len``) is the reference
+model's mask, which the Pallas kernel lacks: the plain version, the model
+layout and the port's CPU loop are held to the JAX model's
+``blockwise_attention`` at ``chunk_q >= prefix_len``, where that loop's
+tiles give the mask on absolute positions; below it the reference's tiles
+hide prefix keys (pinned by ``test_reference_prefix_quirk``).
+``tile_emulation`` rehearses both CUDA kernels' tile ranges and the
+tensor-core kernel's edge test with the prefix."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +29,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.models import attention as jattn
 from repro_torch import configs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (check_tma, flash_attention,
@@ -127,12 +137,219 @@ def test_blockwise_is_the_flash_function(window, softcap, chunks):
 
 
 def test_plain_version_masks():
-    """``flash_mask``: right-aligned causal, window edge, explicit offset."""
+    """``flash_mask``: right-aligned causal, window edge, explicit offset;
+    with a prefix: its rows see the whole prefix and nothing past it, later
+    rows see it past their window, and it follows the right alignment."""
     m = ref.flash_mask(2, 4, window=2)
     assert m.tolist() == [[False, True, True, False],
                           [False, False, True, True]]
     assert ref.flash_mask(2, 4, causal=False).all()
     assert ref.flash_mask(3, 3, q_offset=-1)[0].sum() == 0
+    T, F = True, False
+    assert ref.flash_mask(4, 4, prefix_len=2).tolist() == [
+        [T, T, F, F], [T, T, F, F], [T, T, T, F], [T, T, T, T]]
+    assert ref.flash_mask(4, 4, window=1, prefix_len=1).tolist() == [
+        [T, F, F, F], [T, T, F, F], [T, F, T, F], [T, F, F, T]]
+    # right-aligned: rows at positions 2 and 3 of 4, a prefix of 3
+    assert ref.flash_mask(2, 4, prefix_len=3).tolist() == [
+        [T, T, T, F], [T, T, T, T]]
+    assert ref.flash_mask(2, 4, causal=False, window=1,
+                          prefix_len=1).tolist() == [[T, F, T, T],
+                                                     [T, F, F, T]]
+
+
+def prefix_inputs(seed, S, KV=2, G=2, hd=16, dtype="float32"):
+    """Model-layout q (B, S, KV*G, hd), k/v (B, S, KV, hd) for both
+    packages."""
+    rng = np.random.default_rng(seed)
+    return [pair(rng.standard_normal(shape).astype(np.float32), dtype)
+            for shape in ((2, S, KV * G, hd), (2, S, KV, hd),
+                          (2, S, KV, hd))]
+
+
+@pytest.mark.parametrize("window,softcap", [
+    (None, None), (16, None), (None, 20.0), (16, 20.0)])
+@pytest.mark.parametrize("prefix_len", [1, 7, 20])
+def test_prefix_plain_version_matches_jax_blockwise(prefix_len, window,
+                                                    softcap):
+    """The plain version with the prefix (kernel layout), ``ops.mha_forward``
+    (model layout; on the CPU the plain version) and the port's CPU
+    ``blockwise_attention`` against the JAX model's ``blockwise_attention``
+    at ``chunk_q`` 32 >= prefix_len, float32 within 2e-5."""
+    (jq, tq), (jk, tk), (jv, tv) = prefix_inputs(11, 96)
+    kw = dict(window=window, attn_softcap=softcap, prefix_len=prefix_len)
+    want = jattn.blockwise_attention(jq, jk, jv, chunk_q=32, chunk_kv=16,
+                                     **kw)
+    assert_close(blockwise_attention(tq, tk, tv, chunk_q=32, chunk_kv=16,
+                                     **kw), want)
+    got = ops.mha_forward(tq, tk, tv, window=window, softcap=softcap,
+                          prefix_len=prefix_len)
+    assert_close(got, want)
+    B, S, H, hd = tq.shape
+    KV = tk.shape[2]
+    qk = tq.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    got = ref.flash_attention_ref(qk, tk.transpose(1, 2), tv.transpose(1, 2),
+                                  window=window, softcap=softcap,
+                                  prefix_len=prefix_len)
+    assert_close(got.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd), want)
+
+
+def test_reference_prefix_quirk():
+    """The reference model's prefix mask depends on its tiles: a query
+    tile's key range ends at its own last row, rounded up to ``chunk_kv``,
+    so at ``chunk_q`` 16 < prefix_len 20 the rows of the first tile (which
+    ends before the prefix does) never see prefix keys 16-19.  The port's
+    CPU loop copies that (equal to JAX within 2e-5); the plain version and
+    the CUDA kernels take the mask on absolute positions, so both packages'
+    loops differ from it on exactly rows 0-15."""
+    (jq, tq), (jk, tk), (jv, tv) = prefix_inputs(12, 64)
+    kw = dict(chunk_q=16, chunk_kv=16, prefix_len=20)
+    want = jattn.blockwise_attention(jq, jk, jv, **kw)
+    got = blockwise_attention(tq, tk, tv, **kw)
+    assert_close(got, want)
+    plain = ops.mha_forward(tq, tk, tv, prefix_len=20)
+    for loop in (got, torch.from_numpy(np.array(want))):
+        diff = (loop - plain).abs().amax(dim=(0, 2, 3))     # per row
+        assert (diff[:16] > 1e-2).all(), diff[:16]
+        assert (diff[16:] <= 2e-5).all(), diff[16:].max()
+
+
+def _edge(k0, bk, Skv, q_lo, q_hi, causal, window, P, naive=False):
+    """``flash_tc_kernel``'s test of whether a key tile needs its masks;
+    ``naive``: a wrong one that trusts a CTA wholly inside the prefix to
+    need no causal mask, even on a tile that crosses the prefix's end."""
+    in_prefix = k0 + bk <= P
+    if naive:
+        in_prefix = True
+    return (k0 + bk > Skv
+            or (causal and k0 + bk - 1 > q_lo
+                and not (in_prefix and q_hi < P))
+            or (window is not None and k0 <= q_hi - window
+                and not (k0 + bk <= P)))
+
+
+def tile_emulation(q, k, v, *, kernel="tensor-core", causal=True,
+                   window=None, softcap=None, prefix_len=0, wrong=None):
+    """The tiling of one of ``csrc/flash_attention.cu``'s kernels, on the CPU
+    (a test aid, not the function's plain version): CTAs of flattened
+    (position, head) rows, each over its own range of key tiles, widened by
+    a prefix to key 0 and, for a CTA with a row below ``prefix_len``, to the
+    prefix's last tile.  ``"tensor-core"``: 128 rows, tiles of 128 keys (64
+    at hd 256), masks (as its two bounds a row) only on the tiles the
+    kernel's edge test marks, S =
+    q . k of the bfloat16 values in float32 times hd^-0.5, p rounded to
+    bfloat16 for the value product only, l summing the float32 p.
+    ``"simt"``: 64 rows, tiles of 64 keys, masks on every tile, p in
+    float32.  ``wrong``: ``"range"`` leaves the tile range unwidened (keys
+    past the causal range skipped), ``"edge"`` takes the naive edge test."""
+    B, KV, G, Sq, hd = q.shape
+    Skv = k.shape[2]
+    tc = kernel == "tensor-core"
+    rows_per_cta = 128 if tc else 64
+    bk = (64 if hd == 256 else 128) if tc else 64
+    n, q_offset, scale = Sq * G, Skv - Sq, hd ** -0.5
+    P = prefix_len
+    rows = q.float().permute(0, 1, 3, 2, 4).reshape(B, KV, n, hd)
+    pad = (0, 0, 0, -Skv % bk)
+    kf = torch.nn.functional.pad(k.float(), pad)
+    vf = torch.nn.functional.pad(v.float(), pad)
+    out = torch.empty(B, KV, n, hd)
+    for r0 in range(0, n, rows_per_cta):
+        r1 = min(r0 + rows_per_cta, n)
+        qpos = torch.arange(r0, r1) // G + q_offset
+        q_lo, q_hi = int(qpos[0]), int(qpos[-1])
+        ntiles = -(-Skv // bk)
+        t_hi = min(ntiles, q_hi // bk + 1) if causal else ntiles
+        t_lo = max(0, q_lo - window + 1) // bk if window else 0
+        if P > 0 and wrong != "range":
+            t_lo = 0
+            if q_lo < P:
+                t_hi = max(t_hi, min(ntiles, -(-P // bk)))
+        m = torch.full((B, KV, r1 - r0), -1e30)
+        l = torch.zeros(B, KV, r1 - r0)
+        acc = torch.zeros(B, KV, r1 - r0, hd)
+        for t in range(t_lo, t_hi):
+            kpos = torch.arange(t * bk, (t + 1) * bk)
+            kt, vt = kf[:, :, t * bk:(t + 1) * bk], vf[:, :, t * bk:(t + 1) * bk]
+            s = rows[:, :, r0:r1] @ kt.transpose(-1, -2) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            if tc and _edge(t * bk, bk, Skv, q_lo, q_hi, causal, window, P,
+                            naive=wrong == "edge"):
+                # the tensor-core kernel's two bounds a row (``Tile``)
+                hi = (torch.clamp(torch.clamp(qpos, min=P - 1), max=Skv - 1)
+                      if causal else torch.full_like(qpos, Skv - 1))
+                lo = qpos - window if window else torch.full_like(qpos, -1)
+                mask = ((kpos[None, :] <= hi[:, None])
+                        & ((kpos[None, :] > lo[:, None])
+                           | (kpos < P)[None, :]))
+                s = torch.where(mask, s, -1e30)
+            elif not tc:
+                mask = (kpos < Skv)[None, :]
+                in_prefix = (kpos < P)[None, :]
+                if causal:
+                    mask = mask & ((qpos[:, None] >= kpos[None, :])
+                                   | ((qpos[:, None] < P) & in_prefix))
+                if window is not None:
+                    mask = mask & ((kpos[None, :] > qpos[:, None] - window)
+                                   | in_prefix)
+                s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = p.to(torch.bfloat16).float() if tc else p
+            acc = acc * corr[..., None] + pv @ vt
+            m = m_new
+        out[:, :, r0:r1] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, KV, Sq, G, hd).permute(0, 1, 3, 2, 4).to(q.dtype)
+
+
+def tensor_core_emulation(q, k, v, **kw):
+    """``tile_emulation`` of the tensor-core kernel."""
+    return tile_emulation(q, k, v, kernel="tensor-core", **kw)
+
+
+# PaliGemma's flash layout (one KV head, G 16 with its padding, hd 256): a
+# tensor-core CTA covers 8 positions, a SIMT one 4, so prefixes of 1, 7 and
+# 100 end inside a CTA; 100 also reaches past the first key tile (64 keys)
+PREFIX_TILE_CASES = [(1, 96, None, None), (7, 300, None, None),
+                     (64, 96, None, None), (100, 300, None, None),
+                     (100, 300, 16, None), (7, 96, 16, 20.0)]
+
+
+@pytest.mark.parametrize("prefix_len,S,window,softcap", PREFIX_TILE_CASES)
+@pytest.mark.parametrize("kernel", ["tensor-core", "simt"])
+def test_kernel_tiling_with_prefix(kernel, prefix_len, S, window, softcap):
+    """Each kernel's tiling with the prefix (q (2, 1, 16, S, 256)) against
+    the JAX model's ``blockwise_attention`` over one tile (its mask on
+    absolute positions): the tensor-core kernel's in bfloat16 under the
+    bfloat16 limit, the SIMT kernel's in float32 within 2e-5.  Where the
+    prefix reaches past the first key tile (64 keys), the tile range left
+    unwidened goes past the limit, and so does the tensor-core kernel with
+    the naive edge test (its CTAs wholly inside the prefix then leave the
+    tile across the prefix's end unmasked)."""
+    dtype = "bfloat16" if kernel == "tensor-core" else "float32"
+    (jq, tq), (jk, tk), (jv, tv) = prefix_inputs(13, S, KV=1, G=16, hd=256,
+                                                 dtype=dtype)
+    want = jattn.blockwise_attention(jq, jk, jv, chunk_q=S, chunk_kv=S,
+                                     window=window, attn_softcap=softcap,
+                                     prefix_len=prefix_len)
+    qk = tq.reshape(2, S, 1, 16, 256).permute(0, 2, 3, 1, 4)
+    kk, vk = tk.transpose(1, 2), tv.transpose(1, 2)
+
+    def run(wrong=None):
+        got = tile_emulation(qk, kk, vk, kernel=kernel, window=window,
+                             softcap=softcap, prefix_len=prefix_len,
+                             wrong=wrong)
+        return got.permute(0, 3, 1, 2, 4).reshape(2, S, 16, 256)
+    assert_close(run(), want, dtype)
+    wrongs = []
+    if prefix_len > 64:
+        wrongs = ["range", "edge"] if kernel == "tensor-core" else ["range"]
+    for wrong in wrongs:
+        with pytest.raises(AssertionError):
+            assert_close(run(wrong), want, dtype)
 
 
 def test_wrapper_refuses():

@@ -2,7 +2,8 @@
 attention, model) against ``repro.models`` on the same parameters (the JAX
 package's ``init_params`` carried across with ``convert.params_from_numpy``)
 and the same tokens, in float32 on the CPU at ``.reduced()`` widths, for the
-attention-only architectures and the MoE, SSM and hybrid ones.  Tolerance
+attention-only architectures, PaliGemma's prefix model (seeded patch
+embeddings in front of the tokens) and the MoE, SSM and hybrid ones.  Tolerance
 1e-5 (rtol = atol): the two sum in other orders, and rope's float32 cos and
 sin may differ from XLA's by an ulp."""
 import dataclasses
@@ -28,6 +29,7 @@ ATTN_ARCHS = ["qwen3_4b", "internlm2_1_8b", "gemma2_27b",
               "command_r_plus_104b", "musicgen_medium"]
 MOE_SSM_ARCHS = ["qwen2_moe_a2_7b", "arctic_480b", "mamba2_370m",
                  "hymba_1_5b"]
+PREFIX_ARCHS = ["paligemma_3b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -37,7 +39,9 @@ def close(t, j, **tol):
 
 
 def setup(arch, seed=2, cfg_j=None):
-    """Both configs, both parameter sets, and seeded tokens (B, S + 1)."""
+    """Both configs, both parameter sets, and seeded tokens (B, S + 1); for
+    a prefix model the tokens follow its ``prefix_len`` patch embeddings
+    (``prefix_of``)."""
     cfg_j = cfg_j or jget(arch).reduced()
     cfg_t = get(arch).reduced()
     if cfg_j != jget(arch).reduced():
@@ -52,22 +56,39 @@ def setup(arch, seed=2, cfg_j=None):
     return cfg_j, cfg_t, jp, tp, toks
 
 
-def batches(cfg, params, toks, n, emb_of):
-    """The model input of the first ``n`` positions: tokens, or (for
-    embedding inputs) the embedding rows of the tokens, as the reference's
-    decode test feeds them."""
+def prefix_of(cfg, seed=2):
+    """A prefix model's seeded patch embeddings (B, prefix_len, D), float32
+    numpy, the same for both packages."""
+    return np.random.default_rng(seed + 100).standard_normal(
+        (B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+
+
+def batches(cfg, params, toks, n, emb_of, as_array):
+    """The model input of the first ``n`` tokens: tokens, (for embedding
+    inputs) the embedding rows of the tokens, as the reference's decode
+    test feeds them, or (a prefix model) the tokens behind
+    :func:`prefix_of`'s embeddings."""
     if cfg.input_mode == "embeddings":
         return {"embeddings": emb_of(params["embed"], toks[:, :n])}
+    if cfg.input_mode == "prefix_embeddings":
+        return {"tokens": toks[:, :n],
+                "prefix_embeddings": as_array(prefix_of(cfg))}
     return {"tokens": toks[:, :n]}
 
 
 def jbatch(cfg, jp, toks, n):
-    return batches(cfg, jp, jnp.asarray(toks), n, lambda e, t: e[t])
+    return batches(cfg, jp, jnp.asarray(toks), n, lambda e, t: e[t],
+                   jnp.asarray)
 
 
 def tbatch(cfg, tp, toks, n):
     return batches(cfg, tp, torch.from_numpy(toks).long(), n,
-                   lambda e, t: e[t])
+                   lambda e, t: e[t], torch.from_numpy)
+
+
+def n_prefix(cfg):
+    """Positions in front of the tokens: a prefix model's ``prefix_len``."""
+    return cfg.prefix_len if cfg.input_mode == "prefix_embeddings" else 0
 
 
 def decode_ctx_j(caches, pad=16):
@@ -105,7 +126,7 @@ def close_caches(tc, jc):
         assert tc.ssm.state.dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_SSM_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + PREFIX_ARCHS + MOE_SSM_ARCHS)
 def test_prefill_and_decode_match_jax(arch):
     cfg_j, cfg_t, jp, tp, toks = setup(arch)
     jl, jc = JM.prefill_forward(jp, cfg_j, jbatch(cfg_j, jp, toks, S))
@@ -114,7 +135,7 @@ def test_prefill_and_decode_match_jax(arch):
     close(tl, jl)
     close_caches(tc, jc)
 
-    ctx_len = np.full((B,), S + 1, np.int32)
+    ctx_len = np.full((B,), n_prefix(cfg_t) + S + 1, np.int32)
     jlog, jnew = JM.decode_step(jp, cfg_j, jnp.asarray(toks[:, S]),
                                 decode_ctx_j(jc), jnp.asarray(ctx_len))
     tlog, tnew = M.decode_step(tp, cfg_t, torch.from_numpy(toks[:, S]),
@@ -123,15 +144,16 @@ def test_prefill_and_decode_match_jax(arch):
     close_caches(tnew, jnew)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + MOE_SSM_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + PREFIX_ARCHS + MOE_SSM_ARCHS)
 def test_decode_matches_full_forward(arch):
     """The reference's strongest cache check, on the port alone: prefill(S)
     + decode_step == the full forward's logits at position S (the reference
-    test's 2e-4; the reduced MoE configs' capacity drops no pair)."""
+    test's 2e-4; the reduced MoE configs' capacity drops no pair; a prefix
+    model's context counts its prefix)."""
     _, cfg, _, tp, toks = setup(arch)
     want, _ = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S + 1))
     _, caches = M.prefill_forward(tp, cfg, tbatch(cfg, tp, toks, S))
-    ctx_len = torch.full((B,), S + 1, dtype=torch.int32)
+    ctx_len = torch.full((B,), n_prefix(cfg) + S + 1, dtype=torch.int32)
     got, new = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
                              decode_ctx_t(caches), ctx_len)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
@@ -141,7 +163,7 @@ def test_decode_matches_full_forward(arch):
         # a wrong rope position moves the logits past that tolerance
         bad, _ = M.decode_step(tp, cfg, torch.from_numpy(toks[:, S]),
                                decode_ctx_t(caches), ctx_len,
-                               positions=torch.full((B,), S + 1))
+                               positions=ctx_len)
         assert (bad - want).abs().max() > 1e-2
     if cfg.has_ssm:
         assert new.ssm.state.shape == caches.ssm.state.shape
@@ -226,6 +248,68 @@ def test_blockwise_prefix_matches_jax(prefix_len, window, softcap):
     want = jattn.blockwise_attention(*map(jnp.asarray, (q, k, v)), **kw)
     got = attn.blockwise_attention(*map(torch.from_numpy, (q, k, v)), **kw)
     close(got, want)
+
+
+@pytest.mark.parametrize("change", [
+    {}, {"pad_q_groups": 8}, {"prefix_len": 20}])
+def test_prefix_model_matches_jax(change):
+    """PaliGemma's prefix model (reduced: 8 patch embeddings, 4 query heads
+    over 1 KV head, gelu, tied embedding): the hidden states, the prefill
+    logits and caches as the reference gives them; also with its q-groups
+    padded to twice the heads, as the full config pads 8 to 16, and with a
+    20-position prefix (under the reduced ``attn_chunk_q`` 32, where the
+    reference's tiles give the mask on absolute positions)."""
+    cfg_j = dataclasses.replace(jget("paligemma_3b").reduced(), **change)
+    cfg_j, cfg_t, jp, tp, toks = setup("paligemma_3b", seed=4, cfg_j=cfg_j)
+    assert "lm_head" not in tp and cfg_t.act == "gelu"
+    jh, _, _ = JM.forward_hidden(jp, cfg_j, jbatch(cfg_j, jp, toks, S),
+                                 want_cache=False, remat=False)
+    th, _, _ = M.forward_hidden(tp, cfg_t, tbatch(cfg_t, tp, toks, S))
+    assert th.shape == (B, cfg_t.prefix_len + S, cfg_t.d_model)
+    close(th, jh)
+    jl, jc = JM.prefill_forward(jp, cfg_j, jbatch(cfg_j, jp, toks, S))
+    tl, tc = M.prefill_forward(tp, cfg_t, tbatch(cfg_t, tp, toks, S))
+    assert tc.k.shape[2] == cfg_t.prefix_len + S
+    close(tl, jl)
+    close_caches(tc, jc)
+
+
+def test_prefix_mask_moves_the_logits():
+    """The same prefix model with its bidirectional mask dropped (the
+    prefix embeddings still in front, attended causally) moves the prefill
+    logits far past the parity tolerance: the tests above see the mask."""
+    _, cfg, _, tp, toks = setup("paligemma_3b")
+    batch = tbatch(cfg, tp, toks, S)
+    want, _ = M.prefill_forward(tp, cfg, batch)
+    bad, _ = M.prefill_forward(tp, dataclasses.replace(cfg, prefix_len=0),
+                               batch)
+    assert (bad - want).abs().max() > 1e-2
+
+
+def test_prefix_params_convert():
+    """PaliGemma's parameters cross from the JAX package as they are: a
+    tied embedding and no ``lm_head``, the gelu MLP's three matrices, the
+    reference's head padding kept as configuration (``pad_q_groups`` 16 in
+    the full config: 8 query heads padded to 16 on the flash path); cast to
+    bfloat16 and back unchanged."""
+    full = get("paligemma_3b")
+    assert (full.pad_q_groups, full.num_heads, full.num_kv_heads) == (16, 8, 1)
+    assert full.tie_embeddings and full.act == "gelu"
+    cfg_j = dataclasses.replace(jget("paligemma_3b").reduced(),
+                                pad_q_groups=8)
+    jp = JM.init_params(cfg_j, jax.random.PRNGKey(0), jnp.float32)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   dtype=torch.bfloat16, device="cpu")
+    own = M.init_params(get("paligemma_3b").reduced(), 0, torch.bfloat16,
+                        device="cpu")
+    assert dict(_flatten(tp)).keys() == dict(_flatten(own)).keys()
+    for name, t in _flatten(tp):
+        assert t.dtype == torch.bfloat16, name
+    back = convert.params_to_numpy(tp)
+    for name, t in _flatten(back):
+        want = np.asarray(dict(_flatten(jp))[name].astype(jnp.bfloat16),
+                          np.float32)
+        np.testing.assert_array_equal(t, want, err_msg=name)
 
 
 @pytest.mark.parametrize("arch", ["qwen3_4b", "gemma2_27b"])
@@ -322,13 +406,6 @@ def test_bf16_decode_logit_limit():
     position off by one, here at 12 layers of d 256."""
     sound, wrong = bf16_logit_errors(12, 256, 128)
     assert sound <= 0.06 < wrong, (sound, wrong)
-
-
-@pytest.mark.parametrize("arch", ["paligemma_3b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError,
-                       match="queue 1 item 1: the PaliGemma prefix"):
-        M.init_params(get(arch).reduced(), 0, torch.float32, device="cpu")
 
 
 @pytest.mark.parametrize("arch", MOE_SSM_ARCHS)

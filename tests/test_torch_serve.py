@@ -5,7 +5,8 @@ float32 on the CPU.  The greedy tokens must be equal, token for token, on
 both routes, to the JAX package's and to the no-cache ground truth; the
 views and the SSM states within 1e-5.  qwen2_moe serves on both routes,
 mamba2 and hymba (SSM state) on the shortcut route; the paged route refuses
-an SSM.  The per-shard decode states are held to the port's own whole-batch
+an SSM.  PaliGemma's prefix model serves on both routes with its seeded
+patch embeddings in front of the prompt (a context of prefix + prompt).  The per-shard decode states are held to the port's own whole-batch
 step, since the reference's sharded test fails (ROADMAP section 3)."""
 import jax
 import jax.numpy as jnp
@@ -39,21 +40,25 @@ def setup(request):
     return cfg_j, cfg_t, jp, tp, toks
 
 
-def ground_truth(cfg, params, toks, steps):
+def ground_truth(cfg, params, toks, steps, prefix=None):
     """Greedy decode by re-running the port's full forward (no cache)."""
     cur, out = torch.tensor(toks).long(), []
+    extra = {} if prefix is None else {
+        "prefix_embeddings": torch.from_numpy(prefix)}
     for _ in range(steps):
-        logits, _ = M.prefill_forward(params, cfg, {"tokens": cur})
+        logits, _ = M.prefill_forward(params, cfg, {"tokens": cur, **extra})
         nxt = torch.argmax(logits, dim=-1)
         out.append(nxt)
         cur = torch.cat([cur, nxt[:, None]], dim=1)
     return torch.stack(out, dim=1).numpy()
 
 
-def jax_shortcut(cfg, jp, toks, steps=STEPS):
+def jax_shortcut(cfg, jp, toks, steps=STEPS, prefix=None):
     prefill = jserve.make_prefill_step(cfg, s_cap=S_CAP, dtype=jnp.float32)
     step = jax.jit(jserve.make_serve_step(cfg))
-    logits, state = prefill(jp, {"tokens": jnp.asarray(toks)})
+    extra = {} if prefix is None else {
+        "prefix_embeddings": jnp.asarray(prefix)}
+    logits, state = prefill(jp, {"tokens": jnp.asarray(toks), **extra})
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
     got = [tok]
     for _ in range(steps - 1):
@@ -62,10 +67,12 @@ def jax_shortcut(cfg, jp, toks, steps=STEPS):
     return np.asarray(jnp.stack(got, axis=1)), state
 
 
-def port_shortcut(cfg, tp, toks, steps=STEPS):
+def port_shortcut(cfg, tp, toks, steps=STEPS, prefix=None):
     prefill = serve.make_prefill_step(cfg, S_CAP, torch.float32)
     step = serve.make_serve_step(cfg)
-    logits, state = prefill(tp, {"tokens": torch.tensor(toks)})
+    extra = {} if prefix is None else {
+        "prefix_embeddings": torch.from_numpy(prefix)}
+    logits, state = prefill(tp, {"tokens": torch.tensor(toks), **extra})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     got = [tok]
     for _ in range(steps - 1):
@@ -375,3 +382,92 @@ def test_decode_state_numpy_roundtrip_with_ssm():
             assert got == ()
         else:
             np.testing.assert_array_equal(got, np.asarray(want, got.dtype))
+
+
+def prefix_setup():
+    """PaliGemma's prefix model (reduced: 8 patch embeddings) in both
+    packages, seeded tokens (B, S) and patch embeddings (B, 8, D)."""
+    cfg_j, cfg_t, jp, tp, toks = ssm_setup("paligemma_3b")
+    prefix = np.random.default_rng(4).standard_normal(
+        (B, cfg_j.prefix_len, cfg_j.d_model)).astype(np.float32)
+    return cfg_j, cfg_t, jp, tp, toks, prefix
+
+
+def test_prefix_model_shortcut_serve_matches_jax():
+    """Prefill (a context of prefix + prompt, ``ctx_len`` P + S) and the
+    shortcut decode: greedy tokens equal to the JAX package's and to the
+    no-cache ground truth, the views within 1e-5 of the JAX step's."""
+    cfg_j, cfg_t, jp, tp, toks, prefix = prefix_setup()
+    want, jstate = jax_shortcut(cfg_j, jp, toks, prefix=prefix)
+    got, state = port_shortcut(cfg_t, tp, toks, prefix=prefix)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, ground_truth(cfg_t, tp, toks, STEPS, prefix))
+    tst = convert.decode_state_to_numpy(state)
+    np.testing.assert_array_equal(tst.ctx_len, np.asarray(jstate.ctx_len))
+    assert (tst.ctx_len == cfg_t.prefix_len + S + STEPS - 1).all()
+    for got_v, want_v in ((tst.view_k, jstate.view_k),
+                          (tst.view_v, jstate.view_v)):
+        np.testing.assert_allclose(got_v, np.asarray(want_v), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_prefix_model_paged_serve_matches_jax():
+    """The paged route of the prefix model: ``write_prefill`` of the P + S
+    positions (the same block tables and lengths as the JAX package's),
+    then the paged steps' greedy tokens equal to JAX's and to the ground
+    truth, the pools within 1e-5."""
+    cfg_j, cfg_t, jp, tp, toks, prefix = prefix_setup()
+    P = cfg_j.prefix_len
+    dims = dict(num_blocks=32, block_size=BS, kv_heads=cfg_j.num_kv_heads,
+                head_dim=cfg_j.resolved_head_dim, max_seqs=B,
+                max_blocks_per_seq=S_CAP // BS)
+    jcache = jpc.cache_create(cfg_j.num_layers, dtype=jnp.float32, **dims)
+    jlog, jc = JM.prefill_forward(jp, cfg_j, {
+        "tokens": jnp.asarray(toks), "prefix_embeddings": jnp.asarray(prefix)})
+    jcache = jpc.write_prefill(jcache, jnp.arange(B), jc.k, jc.v)
+    cache = pc.cache_create(cfg_t.num_layers, dtype=torch.float32,
+                            device="cpu", **dims)
+    logits, c = M.prefill_forward(tp, cfg_t, {
+        "tokens": torch.tensor(toks),
+        "prefix_embeddings": torch.from_numpy(prefix)})
+    cache = pc.write_prefill(cache, torch.arange(B), c.k, c.v)
+    assert cache.seq_lens.tolist() == [P + S] * B
+    np.testing.assert_array_equal(cache.seq_lens.numpy(),
+                                  np.asarray(jcache.seq_lens))
+    np.testing.assert_array_equal(cache.block_tables.numpy(),
+                                  np.asarray(jcache.block_tables))
+    jstep = jax.jit(jserve.make_paged_serve_step(cfg_j))
+    step = serve.make_paged_serve_step(cfg_t)
+    jtok = jnp.argmax(jlog, axis=-1).astype(jnp.int32)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    want, got = [np.asarray(jtok)], [tok.numpy()]
+    ids = torch.arange(B, dtype=torch.int32)
+    for _ in range(STEPS - 1):
+        jtok, jcache = jstep(jp, jcache, jtok, jnp.arange(B, dtype=jnp.int32))
+        tok, cache = step(tp, cache, tok, ids)
+        want.append(np.asarray(jtok))
+        got.append(tok.numpy())
+    got = np.stack(got, axis=1)
+    np.testing.assert_array_equal(got, np.stack(want, axis=1))
+    np.testing.assert_array_equal(
+        got, ground_truth(cfg_t, tp, toks, STEPS, prefix))
+    got_cache = convert.paged_cache_to_numpy(cache)
+    np.testing.assert_array_equal(got_cache.seq_lens,
+                                  np.asarray(jcache.seq_lens))
+    np.testing.assert_allclose(got_cache.k_pool, np.asarray(jcache.k_pool),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("qwen3_4b", 5), ("musicgen_medium", 5), ("paligemma_3b", 8 + 5)])
+def test_prompt_len_counts_the_prefix(arch, want):
+    """``make_prefill_step``'s context length: the prompt's tokens or
+    embeddings, and a prefix model's ``prefix_len`` in front (the
+    reference's ``ctx_len``)."""
+    cfg = get(arch).reduced()
+    batch = {"tokens": torch.zeros((2, 5), dtype=torch.long),
+             "embeddings": torch.zeros((2, 5, cfg.d_model)),
+             "prefix_embeddings": torch.zeros((2, cfg.prefix_len,
+                                               cfg.d_model))}
+    assert serve._prompt_len(cfg, batch) == want
