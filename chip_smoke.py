@@ -200,12 +200,43 @@ Phases, each of which raises on failure (exit code 1):
   (k) the port's example twins (``examples/quickstart_torch.py``,
       ``mixed_workload_torch.py``, ``serve_paged_torch.py``) at their own
       defaults on the card, each held to the kernels it must launch; the
-      serving twin must print "outputs identical across paths".
+      serving twin must print "outputs identical across paths"; the
+      training twin (``train_small_torch.py``: qwen3_100m, 300 float32
+      steps of 8 x 256 tokens, a checkpoint every 100) into a fresh
+      directory: its last logged loss below its first, no kernel of the
+      port launched, and a second call that resumes from step 300;
+  (l) training on the card, which launches no kernel of the port (the
+      model attends through ``attention.loop_attention`` under autograd):
+      (l1) qwen3_4b at full width and depth in bfloat16 (4.02 B parameters
+      drawn from --seed on the card, float32 AdamW moments), 8 steps of
+      ``make_train_step`` on ``SyntheticLM`` batches of 4 x 2048 tokens
+      with remat and ``wsd_schedule(3e-4, 2 warmup steps, 8 steps)``:
+      ms per step (median of steps 3-8, host clock and CUDA events),
+      tokens/s, model TFLOP/s against 989 (6 N T plus the loop's attention,
+      the recompute not counted), peak memory against its reckoning, and
+      one profiler trace of a further step split into forward, backward
+      (with the recompute), optimizer and the attention loop's share, with
+      the idle share; checks: every loss and gradient norm finite, step 0's
+      loss bit for bit a ``torch.no_grad()`` ``train_forward``'s, every
+      parameter changed, no kernel launched.  (l2) one step with
+      grad_accum 2 and clipping engaged, in float32, on the card against
+      the CPU at the reduced qwen3_4b, hymba_1_5b and paligemma_3b: the
+      loss within 1e-5 relative, each gradient leaf and updated parameter
+      within a relative RMS of 2^-8, and wrong steps past those limits (the
+      prefix's positions kept in paligemma's loss, the causal mask off by
+      one); one qwen2_moe_a2_7b MoE layer at full width (float32, 2 x 2048
+      tokens, capacity factor 1.25 and 1.0): the gradients through the
+      three ``autograd.Function`` gathers within 1e-5 of autograd's through
+      the plain gathers, and two wrong backward passes past it.  (l3)
+      qwen3_100m in bfloat16, 8 x 256 tokens, grad_accum 2: 6 steps
+      straight against 3, a checkpoint, a restore into fresh tensors and 3
+      more, every parameter and moment bit for bit.
 
 Each phase's wall seconds go on a line of their own.  The flat index is
 dropped before (f), the sharded one before (g), the KV layer before (h),
 each table of (i) before the next and each model of (j) before the next,
-so each path reports its own peak memory.  The last three lines of
+so each path reports its own peak memory; (l) frees each of its parts
+before the next.  The last three lines of
 standard output are the ``{"kernels": [...]}`` JSON (twelve kernels), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA,
 or without ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -3191,36 +3222,67 @@ TWINS = {"quickstart_torch": ("eh_insert", "shortcut_lookup"),
                                "paged_attention")}
 
 
-def phase_twins(torch) -> None:
-    """(k): each twin of ``TWINS`` with its launch counts set to 0 just
-    before it and read just after; its printed lines logged; the serving
-    twin must print that its two access paths gave identical outputs."""
+def run_twin(torch, name: str, argv: list) -> tuple:
+    """``examples/<name>.py``'s ``main(argv)`` with the launch counts set to
+    0 just before it and read just after: (its standard output, its wall
+    seconds, the launch counts); each printed line logged."""
     import contextlib
     import importlib.util
     import io
     from repro_torch.kernels import _build
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _build.launches()
+    for line in buf.getvalue().splitlines():
+        log(f"(k) {name}: {line}")
+    log(f"(k) {name}: {secs:.3f} s; launches {got}")
+    return buf.getvalue(), secs, got
+
+
+def phase_twins(torch) -> None:
+    """(k): each twin of ``TWINS`` at its defaults; the serving twin must
+    print that its two access paths gave identical outputs."""
     for name, kernels in TWINS.items():
-        spec = importlib.util.spec_from_file_location(
-            name, ROOT / "examples" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        buf = io.StringIO()
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            mod.main([])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = _build.launches()
-        for line in buf.getvalue().splitlines():
-            log(f"(k) {name}: {line}")
-        log(f"(k) {name}: {secs:.3f} s at its defaults; launches {got}")
+        out, _, got = run_twin(torch, name, [])
         missing = [k for k in kernels if not got.get(k)]
         assert not missing, f"(k) {name}: no launch of {missing}"
         if name == "serve_paged_torch":
-            assert "outputs identical across paths" in buf.getvalue(), \
+            assert "outputs identical across paths" in out, \
                 f"(k) {name}: no 'outputs identical across paths' line"
+
+
+def phase_train_twin(torch) -> None:
+    """(k): ``examples/train_small_torch.py`` at its defaults (qwen3_100m,
+    300 steps of 8 x 256 tokens, float32) into a fresh checkpoint
+    directory: its last logged loss below its first, and no kernel of the
+    port launched (training attends through the loop); then a second call
+    on the same directory, which must resume from step 300."""
+    import tempfile
+    name = "train_small_torch"
+    tmp = tempfile.mkdtemp(prefix="repro_train_small_")
+    try:
+        out, _, got = run_twin(torch, name, ["--ckpt-dir", tmp])
+        losses = [float(x) for x in re.findall(
+            r"\[train\] step +\d+ loss +(\S+)", out)]
+        log(f"(k) {name}: first logged loss {losses[0]}, last "
+            f"{losses[-1]} ({len(losses)} logged)")
+        assert losses[-1] < losses[0], f"(k) {name}: the loss did not fall"
+        assert not got, f"(k) {name}: launched {got}"
+        out, _, _ = run_twin(torch, name, ["--ckpt-dir", tmp])
+        assert "resumed from step 300" in out, \
+            f"(k) {name}: no 'resumed from step 300' line"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_families(torch, args, timer, smi) -> None:
@@ -3552,6 +3614,670 @@ def report_fig7(res, eh, smi) -> None:
         f"(shortcut route)")
 
 
+# (l): training on the card.  (l1) qwen3_4b at full width and depth in
+# bfloat16, trained through the port's entry points: SyntheticLM batches of
+# 4 x 2048 tokens, remat, grad_accum 1, wsd_schedule(3e-4, 2 warmup steps,
+# 8 steps), 8 steps
+TRAIN_CONFIG = dict(arch="qwen3_4b", batch=4, seq=2048, steps=8,
+                    peak_lr=3e-4, warmup=2)
+# (l1): the steps the medians are taken over (steps 3-8)
+TRAIN_TIMED = slice(2, None)
+BF16_PEAK_TFLOPS = 989.0      # H100 SXM dense bfloat16 (NVIDIA data sheet)
+# (l2): the card against the CPU in float32 at these reduced configs, one
+# step of make_train_step with grad_accum 2 and clipping engaged (clip_norm
+# 0.1 under gradient norms near 2).  Limits: the loss within 1e-5 relative;
+# each gradient leaf and each updated parameter within a relative RMS of
+# 2^-8, because grad_bf16 rounds the branch cotangents to bfloat16 and a
+# rounding that flips moves an element by one bfloat16 step.  The step
+# starts from a warm AdamW state (v = warm_v everywhere, m = 0): from a
+# fresh one Adam's first update is g / (|g| + eps), the sign of each
+# gradient element, so a zero-initialized parameter (the norms' scales,
+# conv_b, dt_bias) becomes -lr sign(g) and an element whose gradient is
+# near zero flips under any rounding (on the CPU a 1e-7 relative
+# perturbation of the parameters moved hymba's conv_b by 3.4 times the
+# limit); with v warm the update is a smooth function of the gradient
+TRAIN_CHECK_ARCHS = ("qwen3_4b", "hymba_1_5b", "paligemma_3b")
+TRAIN_CHECK = dict(batch=4, seq=64, grad_accum=2, clip_norm=0.1,
+                   peak_lr=1e-2, warm_v=1e-6)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_REL_RMS = 2.0 ** -8
+# (l2): the MoE backward at one qwen2_moe_a2_7b layer's full width, float32,
+# 2 x 2048 tokens: the three autograd.Functions against autograd of the
+# plain take_along_dim forwards, relative RMS per gradient leaf
+MOE_GRAD_TOKENS = (2, 2048)
+MOE_GRAD_LIMIT = 1e-5
+# (l3): examples/train_small_torch.py's qwen3_100m in bfloat16, 8 x 256
+# tokens, grad_accum 2: 6 steps straight against 3, a checkpoint, a restore
+# into fresh tensors and 3 more
+RESTORE_CONFIG = dict(batch=8, seq=256, grad_accum=2, steps=6, crash=3,
+                      peak_lr=1e-3)
+
+
+def rel_norm(torch, got, want) -> float:
+    """||got - want|| / ||want|| over a whole tensor in float64, on
+    ``got``'s device (||got - want|| where ``want`` is zero)."""
+    want = want.to(got.device).double()
+    diff = float((got.double() - want).norm())
+    norm = float(want.norm())
+    return diff / norm if norm else diff
+
+
+def loop_pairs(cfg, S: int) -> int:
+    """(query, key) pairs ``attention.loop_attention`` computes in one head
+    of a global layer over S positions: each query tile of chunk_q rows
+    against every key tile its causal footprint touches, in full."""
+    cq = cfg.attn_chunk_q if S % cfg.attn_chunk_q == 0 else S
+    ckv = cfg.attn_chunk_kv if S % cfg.attn_chunk_kv == 0 else S
+    pairs = 0
+    for i in range(S // cq):
+        hi = -(-min(S, (i + 1) * cq) // ckv) * ckv
+        pairs += cq * hi
+    return pairs
+
+
+def trace_split(cpu, dev, windows) -> dict:
+    """A training step's device time in ms by where it ran, from a
+    ``torch.profiler`` trace: ``cpu``, its CPU events; ``dev``, its kernels
+    and copies as (start us, duration us, the id of the CPU operation that
+    launched it); ``windows``, the device time ranges of the spans'
+    device-side annotations by span name (a span's first to last kernel).
+    One stream runs the step in order, so the phases are time windows:
+    ``forward`` (``train.FORWARD_SPAN``: the layers, the loss),
+    ``optimizer`` (``train.OPTIMIZER_SPAN``), ``backward`` between them
+    (with the layers' recompute), ``other``.  ``attention`` is the work of
+    ``attention.loop_attention``: its span's windows (the forward and the
+    recompute) and the kernels of the backward nodes of the operations it
+    ran (a node carries its forward operation's thread and sequence
+    number), of which ``attention_backward``.  Two threads can give one
+    operation id, so a backward kernel takes the candidate launcher under a
+    backward node."""
+    import bisect
+    from repro_torch.models.attention import LOOP_SPAN
+    from repro_torch.runtime import train as T
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    def node(e):
+        """The outermost backward node above ``e`` (on CUDA the engine's
+        device thread runs it), or None."""
+        return next((a for a in reversed(list(chain(e))) if a.name.startswith(
+            "autograd::engine::evaluate_function")), None)
+
+    def within(t, spans):
+        i = bisect.bisect_right(spans, (t, float("inf"))) - 1
+        return i >= 0 and t <= spans[i][1]
+
+    loop_ops = {(e.thread, e.sequence_nr) for e in cpu
+                if e.sequence_nr >= 0
+                and any(a.name == LOOP_SPAN for a in chain(e))}
+    by_id: dict = {}
+    for e in cpu:
+        by_id.setdefault(e.id, []).append(e)
+    fwd = sorted(windows.get(T.FORWARD_SPAN, []))
+    opt = sorted(windows.get(T.OPTIMIZER_SPAN, []))
+    loop = sorted(windows.get(LOOP_SPAN, []))
+    fwd_end = max((b for _, b in fwd), default=float("inf"))
+    opt_start = min((a for a, _ in opt), default=float("inf"))
+    out = dict(forward=0.0, backward=0.0, optimizer=0.0, other=0.0,
+               attention=0.0, attention_backward=0.0)
+    for t, us, link in dev:
+        phase = ("forward" if within(t, fwd) else
+                 "optimizer" if within(t, opt) else
+                 "backward" if fwd_end <= t <= opt_start else "other")
+        out[phase] += us / 1e3
+        if within(t, loop):
+            out["attention"] += us / 1e3
+        elif phase == "backward":
+            nodes = [n for n in map(node, by_id.get(link, ()))
+                     if n is not None]
+            if nodes and (nodes[-1].fwd_thread,
+                          nodes[-1].sequence_nr) in loop_ops:
+                out["attention"] += us / 1e3
+                out["attention_backward"] += us / 1e3
+    return out
+
+
+def train_trace(torch, fn):
+    """``fn()`` (one training step) once under ``torch.profiler``: the
+    device's busy ms (the summed durations of its kernels and copies), their
+    count and :func:`trace_split` of their time; None when the trace holds
+    no device events.  The device events are read from the profiler's
+    Kineto results, which carry each kernel's launcher id."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.attention import LOOP_SPAN
+    from repro_torch.runtime import train as T
+    spans = {LOOP_SPAN, T.FORWARD_SPAN, T.BACKWARD_SPAN, T.OPTIMIZER_SPAN,
+             moe.SPAN, ssm.SPAN}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [k for k in prof.profiler.kineto_results.events()
+            if k.device_type() == DeviceType.CUDA]
+    # a span's device-side annotation is no kernel: left out of busy
+    dev = [(k.start_ns() / 1e3, k.duration_ns() / 1e3,
+            k.linked_correlation_id()) for k in cuda
+           if k.name() not in spans]
+    if not dev:
+        return None
+    windows: dict = {}
+    for k in cuda:
+        if k.name() in spans:
+            windows.setdefault(k.name(), []).append(
+                (k.start_ns() / 1e3, (k.start_ns() + k.duration_ns()) / 1e3))
+    split = trace_split([e for e in prof.events() if e.device_type
+                         == DeviceType.CPU], dev, windows)
+    split["busy"] = sum(us for _, us, _ in dev) / 1e3
+    split["n"] = len(dev)
+    return split
+
+
+def sample(t):
+    """A strided copy of at most 4096 of a tensor's elements."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // 4096)][:4096].clone()
+
+
+def train_full(torch, args) -> dict:
+    """(l1): ``TRAIN_CONFIG``'s model trained for its steps through
+    ``runtime.train.make_train_step``; each step timed by the host clock
+    and by CUDA events, the launch counts set to 0 before the steps and
+    read after, the peak memory over the steps, one profiler trace of a
+    further step; step 0's loss against a ``torch.no_grad()``
+    ``train_forward`` of the same batch and parameters."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.optim.schedule import wsd_schedule
+    from repro_torch.runtime import train as T
+    c = TRAIN_CONFIG
+    cfg = get(c["arch"])
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, args.seed, torch.bfloat16, device=dev)
+    opt = adamw_init(params)
+    leaves = tree_leaves(params)
+    pipe = SyntheticLM(cfg, DataConfig(c["seq"], c["batch"], seed=args.seed),
+                       device=dev)
+    step_fn = T.make_train_step(
+        cfg, lr_fn=lambda s: wsd_schedule(
+            s, peak_lr=c["peak_lr"], warmup_steps=c["warmup"],
+            total_steps=c["steps"]), grad_accum=1, remat=True).fn
+    batches = [pipe.batch(i) for i in range(c["steps"] + 1)]
+    with torch.no_grad():
+        want0 = M.train_forward(params, cfg, batches[0])
+    before = [sample(p) for p in leaves]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    res = dict(cfg=cfg, n_params=sum(p.numel() for p in leaves),
+               param_bytes=sum(p.numel() * p.element_size() for p in leaves),
+               opt_bytes=sum(t.numel() * t.element_size() for t in
+                             tree_leaves(opt.m) + tree_leaves(opt.v)),
+               host_ms=[], dev_ms=[], loss=[], gnorm=[], lr=[])
+    for i in range(c["steps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, opt, m = step_fn(params, opt, batches[i])
+        end.record()
+        torch.cuda.synchronize()
+        res["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["dev_ms"].append(start.elapsed_time(end))
+        if i == 0:
+            res["loss0_equal"] = bool(torch.equal(m["loss"], want0))
+            res["loss0"], res["want0"] = float(m["loss"]), float(want0)
+        for k in ("loss", "lr"):
+            res[k].append(float(m[k]))
+        res["gnorm"].append(float(m["grad_norm"]))
+    res["launches"] = _build.launches()
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["total_memory"] = torch.cuda.get_device_properties(0).total_memory
+    res["unchanged"] = [i for i, (p, b) in enumerate(zip(leaves, before))
+                        if torch.equal(sample(p), b)]
+    res["trace"] = train_trace(
+        torch, lambda: step_fn(params, opt, batches[c["steps"]]))
+    return res
+
+
+def report_train_full(res, smi) -> None:
+    """(l1)'s report lines and checks."""
+    import math
+    c, cfg = TRAIN_CONFIG, res["cfg"]
+    B, S, L = c["batch"], c["seq"], cfg.num_layers
+    T_ = B * S
+    host = median(res["host_ms"][TRAIN_TIMED])
+    dev = median(res["dev_ms"][TRAIN_TIMED])
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    attn_fwd = 4 * B * H * hd * loop_pairs(cfg, S) * L
+    flops = 6 * res["n_params"] * T_ + 3 * attn_fwd
+    tflops = flops / (host / 1e3) / 1e12
+    KV = cfg.num_kv_heads
+    cq = cfg.attn_chunk_q if S % cfg.attn_chunk_q == 0 else S
+    ckv = cfg.attn_chunk_kv if S % cfg.attn_chunk_kv == 0 else S
+    tile = B * KV * (H // KV) * cq * ckv * 4
+    chunk = min(cfg.loss_chunk, S)
+    reckon = dict(state=2 * res["param_bytes"] + res["opt_bytes"],
+                  saved_inputs=L * T_ * cfg.d_model * 2,
+                  attention=3 * (loop_pairs(cfg, S) // (cq * ckv)) * tile,
+                  logits=B * chunk * cfg.vocab_size * 4)
+    log(f"(l1) {c['arch']} at full width and depth, bfloat16: "
+        f"{res['n_params']} parameters ({res['param_bytes']} B), AdamW "
+        f"moments float32 ({res['opt_bytes']} B); {B} x {S} tokens a step, "
+        f"remat, grad_accum 1, wsd_schedule(peak {c['peak_lr']}, warmup "
+        f"{c['warmup']}, {c['steps']} steps); card {smi}")
+    for i in range(c["steps"]):
+        log(f"(l1) step {i}: loss {res['loss'][i]:.6f} grad_norm "
+            f"{res['gnorm'][i]:.6f} lr {res['lr'][i]:.6e}; "
+            f"{res['host_ms'][i]:.4f} ms host clock, {res['dev_ms'][i]:.4f} "
+            f"ms CUDA events")
+    log(f"(l1) ms per step, median of steps 3-{c['steps']}: {host:.4f} "
+        f"(host clock), {dev:.4f} (CUDA events); {T_ / (host / 1e3):.1f} "
+        f"tokens/s; model {flops / 1e12:.2f} TFLOP a step (6 N T "
+        f"{6 * res['n_params'] * T_ / 1e12:.2f} + the loop's attention, "
+        f"forward and backward, {3 * attn_fwd / 1e12:.2f}; the recompute "
+        f"not counted): {tflops:.2f} TFLOP/s, "
+        f"{100 * tflops / BF16_PEAK_TFLOPS:.2f}% of {BF16_PEAK_TFLOPS:.0f}; "
+        f"card {smi}")
+    log(f"(l1) max_memory_allocated over the steps {res['peak']} B, "
+        f"{100 * res['peak'] / res['total_memory']:.1f}% of the card's "
+        f"{res['total_memory']} B; the reckoning: state (parameters, "
+        f"gradients, m, v) {reckon['state']} B, saved layer inputs "
+        f"{reckon['saved_inputs']} B, one layer's loop attention (3 float32 "
+        f"tiles of {tile} B a key tile) {reckon['attention']} B, the loss "
+        f"chunk's float32 logits {reckon['logits']} B: "
+        f"{sum(reckon.values())} B")
+    tr = res["trace"]
+    if tr is None:
+        log("(l1) trace: no device events (device time not measured)")
+    else:
+        busy = tr["busy"]
+        parts = ", ".join(f"{k} {tr[k]:.4f} ms ({100 * tr[k] / busy:.1f}%)"
+                          for k in ("forward", "backward", "optimizer",
+                                    "other"))
+        log(f"(l1) one traced step: device busy {busy:.4f} ms in {tr['n']} "
+            f"kernels and copies, {100 * (1 - busy / host):.1f}% idle "
+            f"against the untraced {host:.4f} ms; {parts}; the attention "
+            f"loop {tr['attention']:.4f} ms "
+            f"({100 * tr['attention'] / busy:.1f}% of busy; its backward "
+            f"nodes {tr['attention_backward']:.4f} ms)")
+    log(f"(l1) checks: step 0's loss {res['loss0']!r} against a no_grad "
+        f"train_forward's {res['want0']!r} (bit for bit: "
+        f"{res['loss0_equal']}); parameters unchanged after the steps "
+        f"{res['unchanged']}; launches of the port's kernels "
+        f"{res['launches']}")
+    assert all(math.isfinite(x) for x in res["loss"] + res["gnorm"]), \
+        "(l1) a non-finite loss or gradient norm"
+    assert res["loss0_equal"], "(l1) step 0's loss differs from no_grad"
+    assert not res["unchanged"], "(l1) parameters did not change"
+    assert not res["launches"], "(l1) training launched a kernel"
+
+
+def train_step_on(torch, cfg, params, batch, device) -> dict:
+    """(l2): the gradients and one make_train_step step on ``device`` from
+    copies of ``params`` and ``batch``: the loss, the gradient leaves, the
+    updated parameter leaves (on the CPU) and the clip scale."""
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+    from repro_torch.runtime import train as T
+    c = TRAIN_CHECK
+    params = tree_map(lambda t: t.to(device, copy=True), params)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    loss, grads = T.loss_and_grads(cfg, params, batch,
+                                   grad_accum=c["grad_accum"])
+    step = T.make_train_step(
+        cfg, lr_fn=lambda s: torch.tensor(c["peak_lr"]),
+        grad_accum=c["grad_accum"], clip_norm=c["clip_norm"]).fn
+    opt = adamw_init(params)
+    opt = opt._replace(v=tree_map(lambda t: torch.full_like(
+        t, c["warm_v"]), opt.v))
+    params, _, m = step(params, opt, batch)
+    return dict(loss=float(loss), clip=float(m["clip_scale"]),
+                grads=[g.cpu() for g in tree_leaves(grads)],
+                params=[p.cpu() for p in tree_leaves(params)],
+                names=list(leaf_names(params)))
+
+
+def leaf_names(tree, prefix=""):
+    """The paths of a tree of nested dictionaries, in ``tree_leaves``'s
+    order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaf_names(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
+def train_ratio(torch, got, want) -> tuple:
+    """(l2)'s errors over their limits: (the largest, the three largest as
+    "what: ratio" strings) over the loss, each gradient leaf and each
+    updated parameter."""
+    rs = [(abs(got["loss"] - want["loss"]) / abs(want["loss"])
+           / TRAIN_LOSS_RTOL, "loss")]
+    for k in ("grads", "params"):
+        for g, w, name in zip(got[k], want[k], want["names"]):
+            rs.append((rel_norm(torch, g, w) / TRAIN_REL_RMS,
+                       f"{k[:-1]} {name}"))
+    rs.sort(reverse=True)
+    return rs[0][0], ", ".join(f"{n}: {r:.4g}" for r, n in rs[:3])
+
+
+def train_parity(torch, args) -> None:
+    """(l2): ``TRAIN_CHECK_ARCHS``' reduced configs, one step on the card
+    against the same step on the CPU (the path the CPU tests hold to the
+    JAX package); and wrong steps, run on the CPU, against the card's:
+    paligemma_3b's loss over the prefix's positions (its last positions
+    dropped instead), and qwen3_4b with the causal mask off by one (each
+    row sees the next key)."""
+    import contextlib
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+    c = TRAIN_CHECK
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+
+    @contextlib.contextmanager
+    def patched(mod, name, value):
+        old = getattr(mod, name)
+        setattr(mod, name, value)
+        try:
+            yield
+        finally:
+            setattr(mod, name, old)
+
+    def prefix_kept(params, cfg, batch, *, remat=True):
+        h, _, aux = M.forward_hidden(params, cfg, batch, remat=remat,
+                                     train=True)
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h.device)
+        return M.chunked_softmax_xent(params, cfg, h[:, :labels.shape[1]],
+                                      labels, mask) \
+            + cfg.router_aux_weight * aux
+
+    tile_mask = attention._tile_mask
+    wrong = {"paligemma_3b": ("the prefix's positions kept in the loss",
+                              M, "train_forward", prefix_kept),
+             "qwen3_4b": ("the causal mask off by one", attention,
+                          "_tile_mask", lambda q, k, *a: tile_mask(
+                              q + 1, k, *a))}
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = get(arch).reduced()
+        params = M.init_params(cfg, args.seed, torch.float32, device=cpu)
+        batch = SyntheticLM(cfg, DataConfig(c["seq"], c["batch"],
+                                            seed=args.seed),
+                            device=cpu).batch(0)
+        card = train_step_on(torch, cfg, params, batch, dev)
+        host = train_step_on(torch, cfg, params, batch, cpu)
+        r, worst = train_ratio(torch, card, host)
+        line = (f"(l2) {arch} reduced, float32, grad_accum "
+                f"{c['grad_accum']}: loss {card['loss']!r} on the card, "
+                f"{host['loss']!r} on the CPU; clip scale {card['clip']:.4g}"
+                f" / {host['clip']:.4g}; errors over their limits, the "
+                f"largest: {worst}")
+        if arch in wrong:
+            what, mod, name, fn = wrong[arch]
+            with patched(mod, name, fn):
+                bad = train_step_on(torch, cfg, params, batch, cpu)
+            rw, worst = train_ratio(torch, bad, card)
+            line += f"; {what}: {worst} (must pass 1)"
+            assert rw > 1, f"(l2) {arch}: {what} within the limits"
+        log(line)
+        assert card["clip"] < 1 and host["clip"] < 1, \
+            f"(l2) {arch}: clipping not engaged"
+        assert r <= 1, f"(l2) {arch}: the card's step off the CPU's"
+
+
+def moe_backward_check(torch, args) -> None:
+    """(l2): one qwen2_moe_a2_7b MoE layer at full width in float32 on
+    ``MOE_GRAD_TOKENS``: the gradients of (out . r) + aux with respect to
+    every parameter and x through the three autograd.Functions, against
+    autograd of the plain take_along_dim forwards on the same card and
+    routing, at the published capacity factor and at 1.0 (where more
+    pairs drop); two wrong backward passes that must pass the limit
+    (``_gather_tokens``' without its inverse permutation,
+    ``_pairs_to_slots``' reading the next slot); and two that no gradient
+    can see, logged: ``hit`` left out of ``_slots_to_pairs``' (an
+    unfilled slot's buffer row is zero, and the bias-free gated expert
+    maps it to zero with zero gradients) and ``keep`` left out of
+    ``_pairs_to_slots``' (a dropped pair then reads the last slot's
+    cotangent, zero for the same reason unless that slot is filled)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    take = torch.take_along_dim
+    plain = {
+        "_gather_tokens": lambda x, stok: take(x, stok[..., None], dim=1),
+        "_pairs_to_slots": lambda xg, src, hit, slot, keep: take(
+            xg, src[..., None], dim=1) * hit[..., None].to(xg.dtype),
+        "_slots_to_pairs": lambda out, slot, keep, src, hit: take(
+            out, slot.clamp(max=out.shape[1] - 1)[..., None], dim=1)
+        * keep[..., None].to(out.dtype)}
+
+    class NoHit(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, out, slot, keep, src, hit):
+            ctx.save_for_backward(src)
+            return plain["_slots_to_pairs"](out, slot, keep, src, hit)
+
+        @staticmethod
+        def backward(ctx, ct):
+            src, = ctx.saved_tensors
+            return take(ct, src[..., None], dim=1), None, None, None, None
+
+    class NoKeep(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, xg, src, hit, slot, keep):
+            ctx.save_for_backward(slot)
+            return plain["_pairs_to_slots"](xg, src, hit, slot, keep)
+
+        @staticmethod
+        def backward(ctx, ct):
+            slot, = ctx.saved_tensors
+            safe = slot.clamp(max=ct.shape[1] - 1)
+            return take(ct, safe[..., None], dim=1), None, None, None, None
+
+    class NextSlot(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, xg, src, hit, slot, keep):
+            ctx.save_for_backward(slot, keep)
+            return plain["_pairs_to_slots"](xg, src, hit, slot, keep)
+
+        @staticmethod
+        def backward(ctx, ct):
+            slot, keep = ctx.saved_tensors
+            safe = (slot + 1).clamp(max=ct.shape[1] - 1)
+            g = take(ct, safe[..., None], dim=1)
+            return g * keep[..., None].to(g.dtype), None, None, None, None
+
+    class NoInverse(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, stok):
+            ctx.S = x.shape[1]
+            return plain["_gather_tokens"](x, stok)
+
+        @staticmethod
+        def backward(ctx, ct):
+            B, SK, D = ct.shape
+            return ct.reshape(B, ctx.S, SK // ctx.S, D).sum(dim=2), None
+
+    cfg0 = get("qwen2_moe_a2_7b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = moe.moe_init(gen, cfg0, torch.float32, dev)
+    x = torch.randn(MOE_GRAD_TOKENS + (cfg0.d_model,), generator=gen,
+                    device=dev)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+
+    def grads(cfg, **patch):
+        saved = {k: getattr(moe, k) for k in patch}
+        for k, v in patch.items():
+            setattr(moe, k, v)
+        try:
+            leaves = [p.detach().requires_grad_()
+                      for p in tree_leaves(params)]
+            xr = x.detach().requires_grad_()
+            out, aux = moe.moe_apply(tree_unflatten(params, leaves), xr, cfg)
+            return torch.autograd.grad((out * r).sum() + aux, leaves + [xr])
+        finally:
+            for k, v in saved.items():
+                setattr(moe, k, v)
+
+    for cf in (cfg0.capacity_factor, 1.0):
+        cfg = dataclasses.replace(cfg0, capacity_factor=cf)
+        C = moe.moe_capacity(cfg, MOE_GRAD_TOKENS[1])
+        with torch.no_grad():
+            _, _, top_i = moe.route(params, x, cfg)
+        load = torch.stack([torch.bincount(t.reshape(-1),
+                                           minlength=cfg.num_experts)
+                            for t in top_i])
+        dropped = int((load - C).clamp_min(0).sum())
+        want = grads(cfg, **plain)
+
+        def err(got):
+            return max(rel_norm(torch, g, w) for g, w in zip(got, want))
+        sound = err(grads(cfg))
+        # the two that must pass the limit, and the two no gradient can
+        # see (logged): the one a zero buffer row hides, and keep, which
+        # only moves a dropped pair onto the last slot's cotangent, zero
+        # unless that slot is filled
+        wrongs = {"_gather_tokens' backward without its inverse":
+                  err(grads(cfg, _gather_tokens=NoInverse.apply)),
+                  "_pairs_to_slots' backward reading the next slot":
+                  err(grads(cfg, _pairs_to_slots=NextSlot.apply))}
+        hidden = {"hit left out of _slots_to_pairs' backward":
+                  err(grads(cfg, _slots_to_pairs=NoHit.apply)),
+                  "keep left out of _pairs_to_slots' backward":
+                  err(grads(cfg, _pairs_to_slots=NoKeep.apply))}
+        del want
+        log(f"(l2) qwen2_moe_a2_7b MoE layer, float32, "
+            f"{MOE_GRAD_TOKENS[0]} x {MOE_GRAD_TOKENS[1]} tokens, capacity "
+            f"factor {cf} (C {C}, {dropped} pairs dropped): the Functions' "
+            f"gradients off autograd's of the plain gathers by {sound:.4g} "
+            f"(relative RMS, the largest leaf; limit {MOE_GRAD_LIMIT}); "
+            "wrong: " + "; ".join(f"{k}: {v:.4g}" for k, v in wrongs.items())
+            + "; logged (a zero buffer row hides it): "
+            + "; ".join(f"{k}: {v:.4g}" for k, v in hidden.items()))
+        assert sound <= MOE_GRAD_LIMIT, "(l2) MoE backward off the plain"
+        for k, v in wrongs.items():
+            assert v > MOE_GRAD_LIMIT, f"(l2) {k} within the limit"
+
+
+def restore_config():
+    """examples/train_small_torch.py's qwen3_100m."""
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(
+        get("qwen3_4b"), name="qwen3_100m", num_layers=8, d_model=512,
+        num_heads=8, num_kv_heads=4, head_dim=64, d_ff=2048,
+        vocab_size=32768)
+
+
+def train_restore(torch, args) -> None:
+    """(l3): ``RESTORE_CONFIG``: the steps straight, and the same steps
+    cut by a checkpoint and a restore into fresh tensors; every parameter
+    and moment must be equal bit for bit.  Then, logged: two straight runs
+    whose embedding is read by indexing (``embed[tokens]``, whose backward
+    is ``index_put_`` with accumulate) in place of ``F.embedding``, equal
+    or not."""
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer, latest_step
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.optim.schedule import wsd_schedule
+    from repro_torch.runtime import train as T
+    c = RESTORE_CONFIG
+    cfg = restore_config()
+    dev = torch.device("cuda")
+    pipe = SyntheticLM(cfg, DataConfig(c["seq"], c["batch"], seed=args.seed),
+                       device=dev)
+    step_fn = T.make_train_step(
+        cfg, lr_fn=lambda s: wsd_schedule(s, peak_lr=c["peak_lr"],
+                                          warmup_steps=2,
+                                          total_steps=c["steps"]),
+        grad_accum=c["grad_accum"]).fn
+
+    def fresh():
+        params = M.init_params(cfg, args.seed, torch.bfloat16, device=dev)
+        return params, adamw_init(params)
+
+    def run(params, opt, steps):
+        for i in steps:
+            params, opt, _ = step_fn(params, opt, pipe.batch(i))
+        return params, opt
+
+    def state(params, opt):
+        return tree_leaves({"p": params, "m": opt.m, "v": opt.v})
+
+    t0 = time.perf_counter()
+    want = state(*run(*fresh(), range(c["steps"])))
+    tmp = tempfile.mkdtemp(prefix="repro_restore_")
+    try:
+        ck = Checkpointer(tmp)
+        params, opt = run(*fresh(), range(c["crash"]))
+        ck.save(c["crash"], {"params": params, "opt": opt})
+        del params, opt                               # the crash
+        step = latest_step(tmp)
+        params, opt = fresh()
+        got = ck.restore(step, {"params": params, "opt": opt})
+        params, opt = run(got["params"], got["opt"],
+                          range(step, c["steps"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = state(params, opt)
+    differ = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    secs = time.perf_counter() - t0
+
+    def by_index(params, tokens):
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        return params["embed"][tokens.long()]
+    old = M._embed_tokens
+    M._embed_tokens = by_index
+    try:
+        a = state(*run(*fresh(), range(c["crash"])))
+        b = state(*run(*fresh(), range(c["crash"])))
+    finally:
+        M._embed_tokens = old
+    idx_differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    log(f"(l3) qwen3_100m, bfloat16, {c['batch']} x {c['seq']} tokens, "
+        f"grad_accum {c['grad_accum']}: {c['steps']} steps straight against "
+        f"{c['crash']} + save + restore into fresh tensors + "
+        f"{c['steps'] - c['crash']}: {differ} of {len(want)} parameter and "
+        f"moment tensors differ (must be 0; {secs:.1f} s); with the "
+        f"embedding read by indexing, two straight {c['crash']}-step runs "
+        f"differ in {idx_differ} of {len(a)}")
+    assert int(opt.step) == c["steps"]
+    assert differ == 0, "(l3) the restored run is not bit-equal"
+
+
+def phase_train(torch, args, smi) -> None:
+    """(l): (l1) then (l2) then (l3), each freed before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = train_full(torch, args)
+    report_train_full(res, smi)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity(torch, args)
+    moe_backward_check(torch, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_restore(torch, args)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3655,7 +4381,11 @@ def main() -> int:
     clock.lap("j")
 
     phase_twins(torch)
+    phase_train_twin(torch)
     clock.lap("k")
+
+    phase_train(torch, args, smi)
+    clock.lap("l")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

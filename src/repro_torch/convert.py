@@ -1,6 +1,6 @@
 """numpy <-> port conversions for the index state, the baselines' states,
 the composed view, the paged KV cache, the KV view pair, the model
-parameters and the serve decode state.
+parameters, the serve decode state and the AdamW optimizer state.
 
 The JAX package's arrays cross over as numpy (``np.asarray`` of each field),
 so that a test can start both packages from the same state and compare
@@ -17,6 +17,7 @@ from repro_torch.core.baselines import CHState, HTIState, HTState
 from repro_torch.core.extendible_hashing import EHState
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.paged_cache import PagedKVCache
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.runtime.serve import DecodeState
 
 _INT32 = ("directory", "counts", "local_depth", "global_depth",
@@ -238,3 +239,30 @@ def decode_state_to_numpy(state):
     float32."""
     return type(state)(*(() if isinstance(a, tuple) else _float_numpy(a)
                          for a in state))
+
+
+def opt_state_from_numpy(state, *, device=None) -> AdamWState:
+    """An ``AdamWState`` of tensors from the reference's (a JAX
+    ``AdamWState`` passes as it is): the step int32, every moment float32,
+    a factored entry's ``{"vr", "vc"}`` kept as its dictionary."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _float_tensor(x, torch.float32, dev)
+
+    step, m, v = state
+    return AdamWState(step=_to_tensor(step, np.int32, dev), m=conv(m),
+                      v=conv(v))
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The same state with numpy arrays."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _float_numpy(x)
+
+    return AdamWState(step=state.step.cpu().numpy(), m=conv(state.m),
+                      v=conv(state.v))

@@ -3,10 +3,15 @@
 Prefill attention, :func:`blockwise_attention`, has two routes with one
 function: on a CUDA tensor it is ``ops.mha_forward``, which launches the
 hand-written flash kernel (``kernels/csrc/flash_attention.cu``); on a CPU
-tensor it is the port of the reference's triangular-blockwise loop, an
-online softmax over only the key tiles each query tile's causal (and
-window) footprint touches.  The reference calls that loop the jnp oracle of
-its Pallas ``flash_attention``; both compute the same function.
+tensor it is :func:`loop_attention`, the port of the reference's
+triangular-blockwise loop, an online softmax over only the key tiles each
+query tile's causal (and window) footprint touches.  The reference calls
+that loop the jnp oracle of its Pallas ``flash_attention``; both compute the
+same function.
+
+Training attends through :func:`loop_attention` on either device, under
+autograd, as the reference differentiates its loop: the flash kernel has no
+backward pass and refuses inputs that require a gradient.
 
 Decode attention, :func:`context_attention`, also dispatches by device.  On
 a CUDA tensor it is the split-K decode kernel (``kernels/csrc/
@@ -32,6 +37,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, apply_rope, rms_norm, softcap
 
 _NEG_INF = -1e30
+
+#: the profiler span around :func:`loop_attention`
+LOOP_SPAN = "repro_torch.attention.loop"
 
 
 def attn_init(gen: torch.Generator, cfg, dtype, device) -> dict:
@@ -109,15 +117,65 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions < prefix_len attend to the whole prefix regardless of order.
     On CUDA this is the flash kernel, and ``chunk_q``/``chunk_kv`` (the
     reference's XLA tiles) do not apply: its prefix mask is the one above
-    on absolute positions.  The CPU loop copies the reference's, where a
-    query tile's key range ends at its own last row (rounded up to
-    ``chunk_kv``), so with ``chunk_q < prefix_len`` the rows of a tile that
-    ends before the prefix does miss the prefix keys past that range; at
-    ``chunk_q >= prefix_len`` (PaliGemma's 2048 against 256) the two
-    agree."""
+    on absolute positions.  On the CPU it is :func:`loop_attention`, whose
+    prefix mask is the reference's (see there); at ``chunk_q >= prefix_len``
+    (PaliGemma's 2048 against 256) the two agree."""
     if q.device.type == "cuda":
         return ops.mha_forward(q, k, v, causal=causal, window=window,
                                softcap=attn_softcap, prefix_len=prefix_len)
+    return loop_attention(q, k, v, chunk_q=chunk_q, chunk_kv=chunk_kv,
+                          causal=causal, window=window,
+                          attn_softcap=attn_softcap, prefix_len=prefix_len)
+
+
+def _tile_mask(q_pos, kp, causal: bool, window: Optional[int],
+               prefix_len: int) -> torch.Tensor:
+    """(chunk_q, chunk_kv) bool: which keys at positions ``kp`` the queries
+    at ``q_pos`` see."""
+    mask = torch.ones((q_pos.shape[0], kp.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        cm = q_pos[:, None] >= kp[None, :]
+        if prefix_len:
+            cm = cm | ((q_pos[:, None] < prefix_len)
+                       & (kp[None, :] < prefix_len))
+        mask &= cm
+    if window is not None:
+        wm = kp[None, :] > (q_pos[:, None] - window)
+        if prefix_len:
+            wm = wm | (kp[None, :] < prefix_len)
+        mask &= wm
+    return mask
+
+
+def loop_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   chunk_q: int, chunk_kv: int, causal: bool = True,
+                   window: Optional[int] = None,
+                   attn_softcap: Optional[float] = None,
+                   prefix_len: int = 0) -> torch.Tensor:
+    """The reference's triangular-blockwise loop in plain PyTorch, on any
+    device and under autograd: q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd) ->
+    (B,Sq,H,hd) in q's dtype.
+
+    Each query tile of ``chunk_q`` rows runs an online softmax over the key
+    tiles of ``chunk_kv`` that its causal (and window) footprint touches,
+    each tile computed in full and masked.  The arithmetic is the
+    reference's: scores from float32 products of q (scaled in its own
+    dtype) and k, and p rounded to v's dtype before P V in float32.  The
+    reference also rematerializes each query tile in its backward; here the
+    model's per-layer remat bounds the memory instead.
+
+    The prefix mask is the reference's, which depends on the tiles: a query
+    tile's key range ends at its own last row (rounded up to ``chunk_kv``),
+    so with ``chunk_q < prefix_len`` the rows of a tile that ends before the
+    prefix does miss the prefix keys past that range."""
+    with torch.profiler.record_function(LOOP_SPAN):
+        return _loop_attention(q, k, v, chunk_q, chunk_kv, causal, window,
+                               attn_softcap, prefix_len)
+
+
+def _loop_attention(q, k, v, chunk_q, chunk_kv, causal, window,
+                    attn_softcap, prefix_len):
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -128,7 +186,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(B, Sq, KV, G, hd) * hd ** -0.5
     outs = []
     for i in range(Sq // chunk_q):
-        q_blk = qg[:, i * chunk_q:(i + 1) * chunk_q]
+        q_blk = qg[:, i * chunk_q:(i + 1) * chunk_q].float()
         q_pos = i * chunk_q + torch.arange(chunk_q, device=q.device)
         hi = min(Skv, (i + 1) * chunk_q) if causal else Skv
         hi = math.ceil(hi / chunk_kv) * chunk_kv
@@ -143,22 +201,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for c0 in range(lo, hi, chunk_kv):
             kt, vt = k[:, c0:c0 + chunk_kv], v[:, c0:c0 + chunk_kv]
             kp = c0 + torch.arange(chunk_kv, device=q.device)
-            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk.float(), kt.float())
+            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, kt.float())
             if attn_softcap is not None:
                 s = softcap(s, attn_softcap)
-            mask = torch.ones((chunk_q, chunk_kv), dtype=torch.bool,
-                              device=q.device)
-            if causal:
-                cm = q_pos[:, None] >= kp[None, :]
-                if prefix_len:
-                    cm = cm | ((q_pos[:, None] < prefix_len)
-                               & (kp[None, :] < prefix_len))
-                mask &= cm
-            if window is not None:
-                wm = kp[None, :] > (q_pos[:, None] - window)
-                if prefix_len:
-                    wm = wm | (kp[None, :] < prefix_len)
-                mask &= wm
+            mask = _tile_mask(q_pos, kp, causal, window, prefix_len)
             s = torch.where(mask, s, _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])

@@ -3,9 +3,7 @@ pure functions over dictionaries of tensors.
 
 Initializers take an explicit ``torch.Generator`` and ``device``; they draw
 other numbers than ``jax.random`` from the same seed, so the tests carry the
-JAX package's parameters across (``convert.params_from_numpy``).  The JAX
-package's ``grad_bf16`` is the identity in the forward pass, the only pass
-the port runs yet, and has no counterpart here.
+JAX package's parameters across (``convert.params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -34,6 +32,24 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
+
+
+class _GradBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(torch.bfloat16).to(ct.dtype)
+
+
+def grad_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose cotangent is rounded to bfloat16 (the reference's
+    ``custom_vjp``), placed at the mixer and FFN branch outputs.  Without a
+    gradient to record it returns ``x`` itself, so the serving paths pay
+    nothing for it."""
+    return _GradBF16.apply(x) if x.requires_grad else x
 
 
 # -- rotary position embedding ------------------------------------------------

@@ -1,33 +1,43 @@
-"""Decoder LM (twin of ``repro/models/model.py``): the prefill forward and the
-one-token decode, for every registered family.
+"""Decoder LM (twin of ``repro/models/model.py``) for every registered
+family, with three entry points:
+
+  * :func:`train_forward`  -- full-sequence forward + chunked cross-entropy
+    loss, under autograd;
+  * :func:`prefill_forward` -- full-sequence forward returning the per-layer
+    KV (and SSM state) caches for the serving layer;
+  * :func:`decode_step`    -- one-token forward over the decode context.
 
 A layer holds attention and/or an SSM mixer (the hybrid averages the two),
 then a dense MLP, or an MoE (with arctic's parallel dense residual).
 Parameters keep the reference's layout, a dictionary whose per-layer
 tensors are stacked over the layer axis (``params["layers"]["attn"]["wq"]``
-is (L, D, H*hd)); each layer reads the view ``[i]`` with no copy.  The
-reference's ``lax.scan`` over layer runs (and its remat) becomes a plain
-Python loop over the same runs (:func:`layer_runs`), and its
-``distributed.constrain`` sharding pins have no counterpart on one card.
+is (L, D, H*hd)); a layer reads views of them with no copy.  The
+reference's ``lax.scan`` over layer runs becomes a plain Python loop over
+the same runs (:func:`layer_runs`), its ``jax.checkpoint(nothing_saveable)``
+a per-layer ``torch.utils.checkpoint``, and its ``distributed.constrain``
+sharding pins have no counterpart on one card.
 
 The input is tokens, embeddings, or (PaliGemma) ``prefix_embeddings``
 in front of the tokens, a bidirectional prefix of ``cfg.prefix_len``
-positions in every attention layer.  Not here yet: training
-(``train_forward``, ``chunked_softmax_xent``, ROADMAP queue 1 item 3).
+positions in every attention layer.  Prefill attends through the flash
+kernel on CUDA; training attends through ``attention.loop_attention`` on
+either device (the kernel has no backward pass).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (embed_init, mlp_apply, mlp_init,
-                                       rms_norm, softcap)
+from repro_torch.models.layers import (embed_init, grad_bf16, mlp_apply,
+                                       mlp_init, rms_norm, softcap)
 
 
 # -- layer kinds / runs --------------------------------------------------------
@@ -130,6 +140,20 @@ def _layer(layers: dict, i: int) -> dict:
             for k, v in layers.items()}
 
 
+def _unbind_layers(layers: dict, L: int) -> list:
+    """Every layer's parameters as views into the stacked tensors, from one
+    ``torch.unbind`` per stack.  Under autograd the unbind's backward writes
+    each layer's slice of the stack's gradient once; a select ``v[i]`` per
+    layer would write (and add) a zero-filled gradient the size of the
+    whole stack for each layer."""
+    out: list = [{} for _ in range(L)]
+    for name, v in layers.items():
+        parts = _unbind_layers(v, L) if isinstance(v, dict) else v.unbind(0)
+        for i in range(L):
+            out[i][name] = parts[i]
+    return out
+
+
 # -- sublayer bodies -------------------------------------------------------------
 
 class LayerCache(NamedTuple):
@@ -150,10 +174,11 @@ def _mix(outs: list) -> torch.Tensor:
 
 
 def _mixer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
-           positions: torch.Tensor):
+           positions: torch.Tensor, train: bool):
     """Attention and/or SSM on pre-normed input (full sequence); returns the
     new residual stream and the layer's :class:`LayerCache`: the (padded)
-    k, v with attention, the ``SSMCache`` with an SSM."""
+    k, v with attention, the ``SSMCache`` with an SSM.  ``train`` attends
+    through ``attention.loop_attention`` on every device."""
     x = rms_norm(h, lp["ln1"], cfg.norm_eps)
     B, S = x.shape[:2]
     outs = []
@@ -162,7 +187,8 @@ def _mixer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
         q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
         q, k, v, _ = attn.pad_heads(q, k, v, cfg)
         window = cfg.sliding_window if kind == "local" else None
-        o = attn.blockwise_attention(
+        attend = attn.loop_attention if train else attn.blockwise_attention
+        o = attend(
             q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
             causal=True, window=window, attn_softcap=cfg.attn_softcap,
             prefix_len=cfg.prefix_len)
@@ -173,7 +199,7 @@ def _mixer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
         o, ssm_cache = ssm_mod.ssm_apply(lp["ssm"], x, cfg)
         outs.append(o)
         cache = cache._replace(ssm=ssm_cache)
-    return h + _mix(outs), cache
+    return h + grad_bf16(_mix(outs)), cache
 
 
 def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig):
@@ -189,14 +215,26 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig):
             out = out + mlp_apply(lp["mlp"], x, cfg.act)
     else:
         out = mlp_apply(lp["mlp"], x, cfg.act)
-    return h + out, aux
+    return h + grad_bf16(out), aux
+
+
+def _sublayer(lp: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
+              positions: torch.Tensor, train: bool):
+    """One layer: (new residual stream, its LayerCache, its aux or None)."""
+    h, cache = _mixer(lp, h, cfg, kind, positions, train)
+    h, aux = _ffn(lp, h, cfg)
+    return h, cache, aux
 
 
 # -- full-sequence forward -------------------------------------------------------
 
 def _embed_tokens(params, tokens) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  ``F.embedding``'s backward sums
+    each row's cotangents in a fixed order on either device, so that
+    training is reproducible bit for bit; an indexing gather's backward
+    (``index_put_`` with accumulate) may sum in any order on the CPU."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
-    return params["embed"][tokens.long()]
+    return F.embedding(tokens.long(), params["embed"])
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
@@ -217,23 +255,35 @@ def _stacked(t: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def forward_hidden(params, cfg: ArchConfig, batch: dict, *,
-                   want_cache: bool = False):
+                   want_cache: bool = False, remat: bool = True,
+                   train: bool = False):
     """Embed + all layers + final norm.  Returns (hidden (B,S,D), caches,
     aux_total): with ``want_cache`` a :class:`LayerCache` of (L, B, S, KVp,
     hd) k and v (with attention) and an ``SSMCache`` of (L, B, d_conv-1,
     conv_dim) conv windows and (L, B, H, P, N) float32 states (with an
     SSM), else None; ``aux_total`` the router's auxiliary loss summed over
-    the layers, () float32."""
+    the layers, () float32.
+
+    With ``remat``, where a gradient is recorded, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward keeps only the
+    layers' inputs and recomputes each layer, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` does.  ``train`` attends through
+    ``attention.loop_attention`` (:func:`train_forward` sets it)."""
     h = _embed_inputs(params, cfg, batch)
     B, S = h.shape[:2]
     L = cfg.num_layers
     positions = torch.arange(S, device=h.device)[None]
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = None
+    layers = _unbind_layers(params["layers"], L)
+    remat = remat and torch.is_grad_enabled()
     for i, kind in _layer_order(cfg):
-        lp = _layer(params["layers"], i)
-        h, cache = _mixer(lp, h, cfg, kind, positions)
-        h, aux = _ffn(lp, h, cfg)
+        if remat:
+            h, cache, aux = checkpoint(_sublayer, layers[i], h, cfg, kind,
+                                       positions, train, use_reentrant=False)
+        else:
+            h, cache, aux = _sublayer(layers[i], h, cfg, kind, positions,
+                                      train)
         if aux is not None:
             aux_total = aux_total + aux
         if want_cache:
@@ -258,6 +308,46 @@ def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap:
         out = softcap(out, cfg.final_softcap)
     return out
+
+
+def chunked_softmax_xent(params, cfg: ArchConfig, h: torch.Tensor,
+                         labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy without materializing (B, S, V) at once: a loop over
+    ``cfg.loss_chunk`` positions (all S when it does not divide S), float32
+    logits a chunk.  The gold logit is a gather, which equals the
+    reference's masked sum over the vocabulary (the other terms are
+    zeros)."""
+    B, S, D = h.shape
+    chunk = min(cfg.loss_chunk, S)
+    if S % chunk:
+        chunk = S
+    labels = labels.long()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        logits = _logits(params, cfg, h[:, c0:c0 + chunk]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+        nll = (lse - gold) * mask[:, c0:c0 + chunk]
+        total = total + nll.sum()
+    return total / mask.sum().clamp_min(1.0)
+
+
+def train_forward(params, cfg: ArchConfig, batch: dict, *,
+                  remat: bool = True) -> torch.Tensor:
+    """The scalar float32 loss.  ``batch``: tokens, embeddings or tokens
+    behind ``prefix_embeddings``; ``labels``; optional ``loss_mask``.  A
+    prefix model's loss covers only the tokens after its prefix; the
+    router's auxiliary loss adds with ``cfg.router_aux_weight``."""
+    h, _, aux = forward_hidden(params, cfg, batch, remat=remat, train=True)
+    labels = torch.as_tensor(batch["labels"], device=h.device)
+    if cfg.input_mode == "prefix_embeddings":  # loss only on the suffix
+        h = h[:, cfg.prefix_len:]
+    mask = batch.get("loss_mask")
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device) \
+        if mask is None else torch.as_tensor(mask, device=h.device).float()
+    loss = chunked_softmax_xent(params, cfg, h, labels, mask)
+    return loss + cfg.router_aux_weight * aux
 
 
 # -- prefill -----------------------------------------------------------------

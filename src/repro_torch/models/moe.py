@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer (twin of ``repro/models/moe.py``): top-k routing
-with sort-based capacity dispatch, forward only.
+with sort-based capacity dispatch.
 
 Dispatch, per batch row and batched over B:
 
@@ -13,8 +13,11 @@ Dispatch, per batch row and batched over B:
      and each token sums its K choices.
 
 The reference writes every movement as a gather whose ``custom_vjp`` keeps
-the backward a gather too (for GSPMD); here they are plain
-``take_along_dim`` forwards, and its ``distributed.constrain`` pins have no
+the backward a gather too (for GSPMD): each mapping is a permutation with a
+known inverse.  Here the three are ``torch.autograd.Function``s with those
+backward passes (:func:`_gather_tokens`, :func:`_pairs_to_slots`,
+:func:`_slots_to_pairs`), so that the gradients are the reference's and no
+backward sums by atomics; its ``distributed.constrain`` pins have no
 counterpart on one card.  The auxiliary loss is the switch-style
 load-balancing loss (mean fraction x mean probability x E / K), computed
 before dropping.
@@ -47,6 +50,70 @@ def moe_init(gen: torch.Generator, cfg, dtype, device) -> dict:
     if cfg.shared_d_ff:
         p["shared"] = mlp_init(gen, d, cfg.shared_d_ff, dtype, device)
     return p
+
+
+class _GatherTokens(torch.autograd.Function):
+    """(B,S,D),(B,S*K) -> (B,S*K,D): xg[b,j] = x[b, stok[b,j]].  ``stok``
+    holds each token K times, and its stable argsort groups token t's K
+    pairs at rows [t*K, (t+1)*K): the backward gathers the cotangent through
+    it and sums over K."""
+
+    @staticmethod
+    def forward(ctx, x, stok):
+        ctx.save_for_backward(stok)
+        ctx.S = x.shape[1]
+        return torch.take_along_dim(x, stok[..., None], dim=1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        stok, = ctx.saved_tensors
+        B, SK, D = ct.shape
+        inv = torch.argsort(stok, dim=-1, stable=True)
+        g = torch.take_along_dim(ct, inv[..., None], dim=1)
+        return g.reshape(B, ctx.S, SK // ctx.S, D).sum(dim=2), None
+
+
+class _PairsToSlots(torch.autograd.Function):
+    """(B,S*K,D) pairs -> (B,E*C,D) buffer rows: buf[t] = xg[src[t]] *
+    hit[t].  Its inverse (slot, keep), pair p filling slot[p] iff keep[p],
+    is the backward's gather."""
+
+    @staticmethod
+    def forward(ctx, xg, src, hit, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        g = torch.take_along_dim(xg, src[..., None], dim=1)
+        return g * hit[..., None].to(g.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        slot, keep = ctx.saved_tensors
+        safe = slot.clamp(max=ct.shape[1] - 1)
+        g = torch.take_along_dim(ct, safe[..., None], dim=1)
+        return g * keep[..., None].to(g.dtype), None, None, None, None
+
+
+class _SlotsToPairs(torch.autograd.Function):
+    """(B,E*C,D) buffer -> (B,S*K,D) pairs: y[p] = out[slot[p]] * keep[p],
+    the inverse of :class:`_PairsToSlots`, whose mapping (src, hit) is the
+    backward's gather."""
+
+    @staticmethod
+    def forward(ctx, out_flat, slot, keep, src, hit):
+        ctx.save_for_backward(src, hit)
+        safe = slot.clamp(max=out_flat.shape[1] - 1)
+        g = torch.take_along_dim(out_flat, safe[..., None], dim=1)
+        return g * keep[..., None].to(g.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        src, hit = ctx.saved_tensors
+        g = torch.take_along_dim(ct, src[..., None], dim=1)
+        return g * hit[..., None].to(g.dtype), None, None, None, None
+
+
+_gather_tokens = _GatherTokens.apply
+_pairs_to_slots = _PairsToSlots.apply
+_slots_to_pairs = _SlotsToPairs.apply
 
 
 def moe_capacity(cfg, tokens: int) -> int:
@@ -104,9 +171,8 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     j = j.clamp(max=S * K - 1)
     hit = torch.gather(sorted_slots, 1, j) == targets
     src = torch.gather(ord2, 1, j)                           # source pair
-    xg = torch.take_along_dim(x, stok[..., None], dim=1)     # (B, S*K, D)
-    buf = torch.take_along_dim(xg, src[..., None], dim=1)
-    buf = (buf * hit[..., None].to(buf.dtype)).reshape(B, E, C, D)
+    xg = _gather_tokens(x, stok)                             # (B, S*K, D)
+    buf = _pairs_to_slots(xg, src, hit, slot, keep).reshape(B, E, C, D)
 
     h = torch.einsum("becd,edf->becf", buf, p["wi"])         # (B,E,C,2ff)
     gate, up = h.chunk(2, dim=-1)
@@ -114,9 +180,7 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     out_e = torch.einsum("becf,efd->becd", h, p["wo"])
     out_flat = out_e.reshape(B, E * C, D)
 
-    safe = slot.clamp(max=E * C - 1)
-    contrib = torch.take_along_dim(out_flat, safe[..., None], dim=1)
-    contrib = contrib * keep[..., None].to(contrib.dtype)
+    contrib = _slots_to_pairs(out_flat, slot, keep, src, hit)
     contrib = contrib * sw.to(x.dtype)[..., None]
     # un-sort through the inverse permutation; a token's K choices are then
     # adjacent and summed

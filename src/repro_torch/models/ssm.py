@@ -1,11 +1,11 @@
 """Mamba2 / SSD (state-space duality) mixer, arXiv:2405.21060 (twin of
 ``repro/models/ssm.py``).
 
-Prefill runs the chunked SSD algorithm: quadratic within fixed chunks (the
-products), plus a linear recurrence over the chunks' states, which the
-reference's ``lax.scan`` becomes a Python loop over the chunks.  Decode is
-the single-step selective-scan recurrence over the ``(B, H, P, N)`` state
-plus a small causal-conv window.  ``A_log``, ``D``, ``dt_bias`` and the
+Training and prefill run the chunked SSD algorithm: quadratic within fixed
+chunks (the products), plus a linear recurrence over the chunks' states,
+which the reference's ``lax.scan`` becomes a Python loop over the chunks.
+Decode is the single-step selective-scan recurrence over the ``(B, H, P,
+N)`` state plus a small causal-conv window.  ``A_log``, ``D``, ``dt_bias`` and the
 state are float32 whatever the model dtype, and every product of the
 recurrence takes float32 operands.
 
@@ -101,8 +101,14 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     delta = torch.where(tri[None, None, :, :, None], delta, -1e30)
     # the reference's five-operand einsum as pairwise products, so that no
     # (..., j, h, p) intermediate is formed: L = exp(delta), then
-    # L * scores * dt_j in place, then the product over j with x
-    w = delta.exp_().mul_(scores[..., None]).mul_(dtc[:, :, None])
+    # L * scores * dt_j, then the product over j with x.  Without a gradient
+    # to record the two products write into exp's output (a prefill's peak
+    # holds one (b, nc, Q, Q, h) tensor); under autograd they cannot, since
+    # exp's backward reads its output
+    if delta.requires_grad or scores.requires_grad:
+        w = delta.exp() * scores[..., None] * dtc[:, :, None]
+    else:
+        w = delta.exp_().mul_(scores[..., None]).mul_(dtc[:, :, None])
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
     del w, delta
 
@@ -130,8 +136,8 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
 
 
 def ssm_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
-    """Full-sequence (prefill) pass.  x: (B, S, D) -> (out (B, S, D),
-    SSMCache for decode)."""
+    """Full-sequence (training or prefill) pass.  x: (B, S, D) -> (out
+    (B, S, D), SSMCache for decode)."""
     with torch.profiler.record_function(SPAN):
         return _ssm_apply(p, x, cfg)
 

@@ -1,7 +1,8 @@
 """The PyTorch port's example twins (``examples/*_torch.py``), each run
 through its ``main()`` with ``--device cpu`` (the kernels' plain versions):
-they finish, print their reference's lines, and the serving twin checks its
-two access paths token for token."""
+they finish, print their reference's lines, the serving twin checks its
+two access paths token for token, and the training twin resumes from its
+checkpoint."""
 import importlib.util
 from pathlib import Path
 
@@ -69,10 +70,33 @@ def test_serve_paged_twin_fails_on_different_paths(monkeypatch):
                   "--gen", "4"])
 
 
+def test_train_small_twin(capsys, tmp_path):
+    """The training twin on the CPU: three steps of qwen3_100m at the
+    example's widths, its final checkpoint, and a second call on the same
+    directory that resumes from it."""
+    mod = load("train_small_torch")
+    argv = ["--device", "cpu", "--steps", "3", "--ckpt-dir", str(tmp_path)]
+    mod.main(argv)
+    out = capsys.readouterr().out
+    assert "[train] step     0 loss " in out and "[train] step     2 " in out
+    assert "[train] final checkpoint at step 3" in out, out
+    mod.main(argv)
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 3" in out, out
+    assert "[train] step" not in out
+
+
+def test_train_launcher_takes_one_device_mesh_only():
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(ValueError, match="takes only --mesh 1x1"):
+        train_main(["--arch", "qwen3_4b", "--reduced", "--mesh", "2x4",
+                    "--device", "cpu"])
+
+
 @pytest.mark.skipif(torch.cuda.is_available(),
                     reason="checks the refusal on a machine without CUDA")
 @pytest.mark.parametrize("name", ["quickstart_torch", "mixed_workload_torch",
-                                  "serve_paged_torch"])
+                                  "serve_paged_torch", "train_small_torch"])
 def test_twins_default_to_cuda(name):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load(name).main([])

@@ -100,6 +100,8 @@ def test_default_device_is_cuda(monkeypatch):
     from repro_torch.configs import get
     from repro_torch.models.model import init_params
     from repro_torch.runtime.serve import decode_state_init
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import main as train_main
     cfg = get("qwen3_4b").reduced()
     cpu_cache = cache_create(1, 4, 2, 1, 8, 2, 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -108,6 +110,8 @@ def test_default_device_is_cuda(monkeypatch):
                  lambda: ShortcutKVManager(cpu_cache, 4),
                  lambda: PrefixCacheIndex(4),
                  lambda: init_params(cfg), lambda: decode_state_init(cfg, 2, 8),
+                 lambda: SyntheticLM(cfg, DataConfig(8, 2)),
+                 lambda: train_main(["--arch", "qwen3_4b", "--reduced"]),
                  lambda: resolve_device(None),
                  lambda: resolve_device("cuda:0")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

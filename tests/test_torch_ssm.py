@@ -123,3 +123,59 @@ def test_init_and_cache_dtypes():
     jc = jssm.ssm_cache_init(jget("hymba_1_5b").reduced(), 3, jnp.bfloat16)
     assert c.conv.shape == jc.conv.shape and c.conv.dtype == torch.bfloat16
     assert c.state.shape == jc.state.shape and c.state.dtype == torch.float32
+
+
+def test_ssd_chunked_grads_match_jax():
+    """Differentiable SSD: the gradients of (y, final state) with respect to
+    x, dt, A, B, C and D against ``jax.vjp`` of the reference's, off the
+    chunk (rtol = atol 1e-4: the chunk products' backward sums in other
+    orders); and under ``torch.no_grad()`` the in-place products give the
+    same y and state bit for bit."""
+    rng = np.random.default_rng(11)
+    b, s, h, p, n, chunk = 2, 37, 4, 8, 16, 16
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((b, s, n)).astype(np.float32)
+              for _ in range(2))
+    D = rng.standard_normal(h).astype(np.float32)
+    args = (x, dt, A, Bm, Cm, D)
+    cy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    cst = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, chunk),
+                     *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(cy), jnp.asarray(cst)))
+    targs = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, state = ssm.ssd_chunked(*targs, chunk)
+    got = torch.autograd.grad((y, state), targs,
+                              (torch.from_numpy(cy), torch.from_numpy(cst)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+    with torch.no_grad():
+        y0, state0 = ssm.ssd_chunked(*map(torch.from_numpy, args), chunk)
+    assert torch.equal(y0, y.detach()) and torch.equal(state0, state.detach())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ssm_families_train_backward(arch):
+    """A backward pass through the reduced model's ``forward_hidden`` (and
+    ``train_forward``) of the SSM families, with and without remat: the
+    SSD's products write out of place under autograd, so nothing it needs
+    for its gradient is overwritten; every gradient finite and the SSM's
+    parameters' nonzero."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    cfg = get(arch).reduced()
+    params = M.init_params(cfg, 0, torch.float32, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 41)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for remat in (True, False):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        loss = M.train_forward(tree, cfg, batch, remat=remat)
+        grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        assert all(bool(g.isfinite().all()) for g in tree_leaves(grads))
+        for name in ("in_proj", "A_log", "dt_bias", "D"):
+            assert float(grads["layers"]["ssm"][name].abs().sum()) > 0, name
