@@ -44,7 +44,8 @@ Phases, each of which raises on failure (exit code 1):
       SPLIT, SPLIT + 1 and S_cap), at (j)'s decode layers (hymba_1_5b:
       G 5, hd 64, window 1024 and a global layer; qwen2_moe_a2_7b: 16 KV
       heads, G 1, hd 128; paligemma_3b: 1 KV head, G 8, hd 256, 8
-      sequences; S_cap 2112): contexts off the tile, 0 and
+      sequences; S_cap 2112) and at (m1)'s decode layer (4 sequences,
+      S_cap 2088): contexts off the tile, 0 and
       S_cap, a -1 table entry and an all -1 row, strided (as
       ``ops.decode_*`` pass them) and contiguous inputs, the self row
       (the current token's K/V) folded in, and the shortcut route bitwise
@@ -61,6 +62,7 @@ Phases, each of which raises on failure (exit code 1):
       hymba_1_5b's (G 5, hd 64, window 1024 over 1500 tokens, and its
       global layers), at musicgen_medium's (G 1, hd 64, 1000 tokens) and at
       qwen2_moe_a2_7b's prefill layer (16 heads, G 1, hd 128, 8 x 2048
+      tokens), in float32 at (m1)'s prefill layer (qwen3_4b, 4 x 2048
       tokens), then with PaliGemma's bidirectional prefix in float32 and
       bfloat16 (1 KV head, G 16 with its padding, hd 256: prefixes of 1, 7,
       64 and 100 over 96 and 300 positions, with a window of 16 and a
@@ -230,7 +232,29 @@ Phases, each of which raises on failure (exit code 1):
       the plain gathers, and two wrong backward passes past it.  (l3)
       qwen3_100m in bfloat16, 8 x 256 tokens, grad_accum 2: 6 steps
       straight against 3, a checkpoint, a restore into fresh tensors and 3
-      more, every parameter and moment bit for bit.
+      more, every parameter and moment bit for bit;
+  (m) the launch tools: (m1) the serve CLI (``repro_torch.launch.serve``,
+      float32 weights drawn from --seed) in-process at qwen3_4b's full
+      width and depth, 4 prompts of 2048 tokens and 32 greedy tokens, on
+      the shortcut and then the paged route: its four lines (prefill and
+      decode ms and tokens/s, the sample tokens), the flash kernel
+      launched once a layer and the route's decode kernels in every step,
+      and the two routes' sample tokens equal (both routes share the
+      prefill, so (c) holds the float32 kernels to their plain versions at
+      (m1)'s shapes); (m2) the one-card dry run
+      (``repro_torch.launch.dryrun.main``) on the meta device: in this
+      process the paged path's decode cells of every assigned arch and
+      qwen3_4b's prefill (no kernel launched, the card's allocated and
+      peak memory unchanged), then every arch at every shape on the
+      shortcut path in child processes that cannot see the card; every
+      cell ``ok`` or ``SKIP`` as ``cell_status`` says, one line a cell
+      (flops, bytes, memory, the roofline terms, ``fits``); (m3)
+      ``launch.op_cost.analyze`` of the reduced qwen3_4b prefill and train
+      step run for real in bfloat16 against the same steps on the meta
+      device, flops and bytes equal (the kernels' recorded costs
+      included), and the dry run's qwen3_4b decode memory term at (h)'s
+      shape and train-step memory at (l1)'s shape logged beside (h)'s
+      device-busy step and (l1)'s peak.
 
 Each phase's wall seconds go on a line of their own.  The flat index is
 dropped before (f), the sharded one before (g), the KV layer before (h),
@@ -934,8 +958,8 @@ def phase_attention(torch, np, seed: int) -> None:
     table entry inside the context and an all -1 row; the widths of
     qwen3_4b (KV 8, G 4) and of gemma2_27b (KV 16, G 2, softcap 50.0,
     window 4096 cutting an 8192 context, on both routes), G = 3 at hd 64,
-    and contexts at the split kernel's edges (SPLIT - 1, SPLIT, SPLIT + 1,
-    S_cap); at each shape the self-row fold (the current token's K/V row as
+    contexts at the split kernel's edges (SPLIT - 1, SPLIT, SPLIT + 1,
+    S_cap), and (m1)'s decode layer (4 sequences, S_cap 2088); at each shape the self-row fold (the current token's K/V row as
     the last live position) against its plain version on both routes, and
     the shortcut route bitwise equal to the paged route over the same rows
     in shuffled blocks."""
@@ -966,7 +990,12 @@ def phase_attention(torch, np, seed: int) -> None:
         # decode tokens sit past the prefix, so no prefix term): 8
         # sequences at (j)'s S_cap on both routes
         ("paligemma_3b widths", 8, 1, 8, 256, 2112,
-         [2080, 1500, 2112, 2064, 0, 1, 700, 2047], None, None)]
+         [2080, 1500, 2112, 2064, 0, 1, 700, 2047], None, None),
+        # (m1)'s decode layer: the serve CLI's 4 sequences at qwen3_4b's
+        # widths, 2048 prompt tokens + up to 31 generated in an S_cap-2088
+        # view
+        ("qwen3_4b, serve CLI decode layer", 4, 8, 4, 128, 2088,
+         [2048, 2063, 2079, 2087], None, None)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, KV, G, hd, S, ctx, window, softcap in cases:
             def randn(*shape):
@@ -1093,6 +1122,11 @@ FLASH_MODEL_CASES = [
     ("qwen2_moe_a2_7b prefill layer", (8, 16, 1, 2048, 128), 2048, None, None,
      2),
 ]
+# (c), flash attention in float32 at (m1)'s prefill layer shape: the serve
+# CLI's float32 parameters run the CUDA-core kernel at qwen3_4b's widths
+# over its 4 x 2048 prompt (the plain version on all four sequences)
+FLASH_SERVE_CASE = ("qwen3_4b prefill layer, serve CLI", (4, 8, 4, 2048, 128),
+                    2048, None, None, None)
 
 
 # (c), flash attention with PaliGemma's bidirectional prefix: name, q shape,
@@ -1205,7 +1239,8 @@ def phase_flash(torch, seed: int) -> None:
     gemma2_27b's widths (16 KV heads, G 2, hd 128) with window 4096 and
     softcap 50 over 8192 tokens, at hymba_1_5b's (KV 5, G 5, hd 64, window
     1024 over 1500 tokens) and at musicgen_medium's (24 heads, G 1, hd 64,
-    1000 tokens); then float32 and bfloat16 at ``FLASH_PREFIX_CASES``
+    1000 tokens); float32 at ``FLASH_SERVE_CASE`` ((m1)'s prefill layer,
+    4 x 2048 tokens at qwen3_4b's widths); then float32 and bfloat16 at ``FLASH_PREFIX_CASES``
     (PaliGemma's bidirectional prefix) and bfloat16 at PaliGemma's prefill
     layer; each line names the kernel that ran (``tensor-core`` or
     ``simt``); at each shape the wrong kernels' plain versions go past the
@@ -1269,6 +1304,9 @@ def phase_flash(torch, seed: int) -> None:
     for name, shape, skv, window, softcap, n_plain in FLASH_MODEL_CASES:
         check(name, shape, skv, window, softcap, torch.bfloat16, 1.0,
               n_plain=n_plain)
+    name, shape, skv, window, softcap, n_plain = FLASH_SERVE_CASE
+    check(name, shape, skv, window, softcap, torch.float32, 1.0,
+          n_plain=n_plain)
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, skv, P, window, softcap, scale, n_plain in \
                 FLASH_PREFIX_CASES:
@@ -2043,7 +2081,7 @@ def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
     """Per-route decode step (36 layer calls) and per-kernel times on
     layer 0 at the full batch, with plain and library times and bounds."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _decode, ops, ref
     c = KV_CONFIG
     L, KV, hd, bs = c["layers"], c["kv_heads"], c["head_dim"], c["block"]
     B, H = q.shape[:2]
@@ -2062,8 +2100,6 @@ def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
     out["pool_clone_ms"], _ = timer(lambda: [
         cache.k_pool.clone(), cache.v_pool.clone()] and None)
     live = int(lens.sum())
-    nblk = int(((lens + bs - 1) // bs).sum())
-    io = live * KV * hd * 2 * 2 + 2 * q.nbytes      # K, V rows; q and out
     qk = q.reshape(B, KV, G, hd)
     rows = []
     timer = DeviceTimer(torch)      # the kernel rows: device time
@@ -2075,8 +2111,10 @@ def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
             B, H, hd), reps=3, warmup=1)
     ratio, err = close(torch, got, want)
     out["limit_ratio"] = {"paged_attention": ratio}
+    flops, bytes_ = _decode.cost(qk, kp.transpose(1, 2), lens, tables, bs,
+                                 None, False)
     rows.append(("paged_attention", "src/repro/kernels/paged_attention.py:112",
-                 ms, plain_ms, io + 4 * nblk + 4 * B, err, None))
+                 ms, plain_ms, bytes_, err, None, flops))
     # shortcut, layer 0, read in place from the installed stack
     vk, vv = sk[0, 0], sv[0, 0]
     ms, got = timer(lambda: ops.decode_shortcut(q, vk, vv, lens))
@@ -2093,9 +2131,11 @@ def measure_kv(torch, mgr, timer, ids_t, q) -> dict:
     out["limit_ratio"]["shortcut_attention"] = ratio
     out["wrong_variants"] = wrong_variants(
         torch, want, qk, vk.transpose(1, 2), vv.transpose(1, 2), lens)
+    flops, bytes_ = _decode.cost(qk, vk.transpose(1, 2), lens, None,
+                                 vk.shape[1], None, False)
     rows.append(("shortcut_attention",
                  "src/repro/kernels/shortcut_attention.py:114", ms, plain_ms,
-                 io + 4 * B, err, lib_ms))
+                 bytes_, err, lib_ms, flops))
     out["rows"] = rows
     out["live_tokens"] = live
     assert torch.equal(ops.decode_paged(q, kp, vp, tables, lens),
@@ -2205,11 +2245,12 @@ def report_kv(kres, smi, kernels) -> None:
         "length (CUDA events, turns a b b a): " + split_line(kres["splits"])
         + "; the routes equal bit for bit on the installed view; profiler: "
         + "; ".join(device_line(k, *v) for k, v in kres["device"].items()))
-    for name, replaces, ms, plain_ms, bytes_, max_err, lib_ms in kres["rows"]:
+    for (name, replaces, ms, plain_ms, bytes_, max_err, lib_ms,
+         flops) in kres["rows"]:
         kernels.append(_row(
             name, "src/repro_torch/kernels/csrc/decode_attention.cu",
             replaces, kres["launches"], ms, plain_ms, bytes_, max_err,
-            library_ms=lib_ms, phase="g"))
+            library_ms=lib_ms, phase="g", flops=flops))
 
 
 #: names of the decode kernels' ``__global__`` functions in a trace
@@ -2382,6 +2423,7 @@ def measure_flash(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> tuple:
     largest difference from plain, and its bound; with padded heads, also
     the kernel's time on the live heads alone."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import kernel_path
     from repro_torch.models import attention as attn
@@ -2409,11 +2451,9 @@ def measure_flash(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> tuple:
         enable_gqa=True, **sdpa))
     lib = lib.reshape(B, KV, H // KV, S, hd)
     lib_ratio, lib_err = err_ratio(torch, lib, want)
-    # visible (query, key) pairs: the causal triangle and, with a prefix,
-    # the prefix's pairs above the diagonal
-    pairs = S * (S + 1) // 2 + P * (P - 1) // 2
-    flops = 4 * B * H * hd * pairs
-    bytes_ = 2 * (qm.nbytes + km.nbytes)        # q, k, v read; out written
+    # the wrapper's own reckoning: 4 hd flops a query head for each visible
+    # (query, key) pair; q, k, v read and the output written
+    flops, bytes_ = flash.cost(q, km.transpose(1, 2), prefix_len=P)
     bound = max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3
     padded = ""
     if Gp != G:
@@ -2449,7 +2489,7 @@ def measure_decode(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> None:
     the self row written in (a copy); the routes bitwise equal; and both
     split lengths."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _decode, ops, ref
     cfg = mres["cfg"]
     B, s_cap, bs = c["batch"], c["s_cap"], c["block"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -2492,9 +2532,10 @@ def measure_decode(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> None:
         q[:, :, None], lk.transpose(1, 2), lv.transpose(1, 2),
         attn_mask=mask, enable_gqa=True))
     lib_ratio, _ = err_ratio(torch, lib[:, :, 0], want)
-    live = B * (n_old + 1)
-    io = live * KV * hd * 2 * 2 + 2 * q.nbytes       # K, V rows; q and out
-    nblk = B * -(-n_old // bs)
+    cost_s = _decode.cost(qk, vk.transpose(1, 2), lens, None, s_cap, None,
+                          True)
+    cost_p = _decode.cost(qk, kp.transpose(1, 2), lens, tables, bs, None,
+                          True)
     launches = {r + "_attention": mres["decode_launches"] * c["steps"]
                 for r in mres.get("routes", ("shortcut", "paged"))}
     log(f"({phase}) decode kernels at the decode layer shape (q "
@@ -2503,10 +2544,10 @@ def measure_decode(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> None:
         f"block {bs}; launches: the {c['steps']} decode steps): shortcut == "
         f"paged bit for bit; scaled_dot_product_attention |err| / limit "
         f"{lib_ratio:.3g}")
-    _row("shortcut_attention", "", "", launches, ms_s, plain_s, io + 4 * B,
-         err_s, library_ms=lib_ms, phase=phase)
-    _row("paged_attention", "", "", launches, ms_p, plain_p,
-         io + 4 * nblk + 4 * B, err_p, phase=phase)
+    _row("shortcut_attention", "", "", launches, ms_s, plain_s, cost_s[1],
+         err_s, library_ms=lib_ms, phase=phase, flops=cost_s[0])
+    _row("paged_attention", "", "", launches, ms_p, plain_p, cost_p[1],
+         err_p, phase=phase, flops=cost_p[0])
     log(f"({phase}) decode layer shape, profiler: " + "; ".join((
         device_line("shortcut_attention", *device_ms(
             torch, lambda: ops.decode_shortcut(q, vk, vv, lens, **new))),
@@ -4262,12 +4303,14 @@ def train_restore(torch, args) -> None:
     assert differ == 0, "(l3) the restored run is not bit-equal"
 
 
-def phase_train(torch, args, smi) -> None:
-    """(l): (l1) then (l2) then (l3), each freed before the next."""
+def phase_train(torch, args, smi) -> int:
+    """(l): (l1) then (l2) then (l3), each freed before the next; returns
+    (l1)'s peak memory."""
     gc.collect()
     torch.cuda.empty_cache()
     res = train_full(torch, args)
     report_train_full(res, smi)
+    peak = res["peak"]
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -4276,6 +4319,253 @@ def phase_train(torch, args, smi) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train_restore(torch, args)
+    return peak
+
+
+# (m1): the serve CLI (repro_torch.launch.serve, the reference's
+# launch/serve.py: float32 weights drawn from --seed) at qwen3_4b's full
+# width and depth on 4 prompts of 2048 tokens, 32 greedy tokens a route
+LAUNCH_SERVE = ["--arch", "qwen3_4b", "--batch", "4", "--prompt-len", "2048",
+                "--gen", "32"]
+# (m2): the dry run's sweeps.  In this process, where the card is live, the
+# paged path's cells that the path changes (the decode shapes: both decode
+# kernels' meta branch) and one prefill (the flash kernel's); then every
+# arch x shape on the shortcut path, one process an arch with the card
+# hidden, as many at once as the host has cores (in one process the
+# shortcut sweep took 99.7 s on the host of an H100 80GB HBM3 machine)
+DRYRUN_IN_PROCESS = (("all", "decode_32k"), ("all", "long_500k"),
+                     ("qwen3_4b", "prefill_32k"))
+# (m3): the reduced qwen3_4b prefill and train step counted on the card and
+# on the meta device (batch x tokens)
+COUNT_CONFIG = dict(arch="qwen3_4b", batch=2, seq=64)
+
+
+def run_main(fn, argv) -> tuple:
+    """``fn(argv)`` with its standard output captured: (code, lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def launch_serve(torch, smi) -> None:
+    """(m1): ``launch.serve.main`` in-process on both routes: its four
+    lines, the flash kernel launched once a layer in the prefill and the
+    route's decode kernels in every step, the routes' sample tokens
+    equal."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    L = get("qwen3_4b").num_layers
+    steps = int(LAUNCH_SERVE[LAUNCH_SERVE.index("--gen") + 1]) - 1
+    tokens = {}
+    for path in ("shortcut", "paged"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        rc, lines = run_main(serve.main, LAUNCH_SERVE + ["--path", path])
+        got = _build.launches()
+        assert rc == 0 and len(lines) == 4, f"(m1) {path}: {rc} {lines}"
+        for line in lines:
+            log(f"(m1) {line.strip()}")
+        log(f"(m1) {path}: launches {got}; card {smi}")
+        want = {"flash_attention": L,
+                f"{path}_attention": 2 * L * steps}
+        assert got == want, f"(m1) {path}: launches {got}, want {want}"
+        tokens[path] = lines[3].split(":", 1)[1].strip()
+    assert tokens["shortcut"] == tokens["paged"], f"(m1) tokens {tokens}"
+
+
+def launch_dryrun(torch) -> None:
+    """(m2): ``launch.dryrun.main`` over ``DRYRUN_IN_PROCESS`` on the paged
+    path in this process (no kernel launched, the card's allocated and
+    peak memory unchanged), then every arch x shape on the shortcut path in
+    child processes that cannot see the card; every cell ``ok`` or
+    ``SKIP`` as ``cell_status`` says, one JSON and one line a cell."""
+    import concurrent.futures
+    import os
+    import tempfile
+    from repro_torch.configs import get
+    from repro_torch.configs.base import ASSIGNED
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, cell_status
+    tmp = Path(tempfile.mkdtemp(prefix="repro_dryrun_"))
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (torch.cuda.memory_allocated(),
+                  torch.cuda.max_memory_allocated())
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cells = []
+        for arch, shape in DRYRUN_IN_PROCESS:
+            rc, lines = run_main(dryrun.main, [
+                "--arch", arch, "--shape", shape, "--path", "paged",
+                "--out", str(tmp / "paged")])
+            for line in lines:
+                log(f"(m2) {line}")
+            assert rc == 0, f"(m2) paged {arch} {shape}: exit {rc}"
+            cells += [("paged", a, shape) for a in
+                      (ASSIGNED if arch == "all" else (arch,))]
+        torch.cuda.synchronize()
+        after = (torch.cuda.memory_allocated(),
+                 torch.cuda.max_memory_allocated())
+        log(f"(m2) paged path in this process: {len(cells)} cells in "
+            f"{time.perf_counter() - t0:.1f} s; memory_allocated / "
+            f"max_memory_allocated before {before}, after {after}; "
+            f"launches {_build.launches()}")
+        assert after == before, "(m2) the dry run touched device memory"
+        assert not _build.launches(), "(m2) the dry run launched a kernel"
+
+        t0 = time.perf_counter()
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(ROOT / "src"))
+
+        def sweep(arch):
+            return subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", "all", "--out", str(tmp / "shortcut")],
+                env=env, capture_output=True, text=True, timeout=600)
+        with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as ex:
+            done = list(ex.map(sweep, ASSIGNED))
+        for arch, out in zip(ASSIGNED, done):
+            for line in out.stdout.splitlines():
+                log(f"(m2) {line}")
+            assert out.returncode == 0, \
+                f"(m2) shortcut {arch}: exit {out.returncode}: " \
+                f"{out.stderr[-2000:]}"
+        cells += [("shortcut", a, sh) for a in ASSIGNED for sh in SHAPES]
+        log(f"(m2) shortcut path, every arch x shape in {len(ASSIGNED)} "
+            f"processes without the card ({os.cpu_count()} at once): "
+            f"{len(ASSIGNED) * len(SHAPES)} cells in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path, arch, shape in cells:
+            f = tmp / path / f"{arch}__{shape}__1-card__{path}.json"
+            rec = json.loads(f.read_text())
+            assert rec["status"] == cell_status(get(arch), shape), \
+                f"(m2) {f.name}: {rec['status']}"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def count_inputs(torch, cfg, device, seed: int, batch: int, seq: int):
+    """Parameters, AdamW state and a batch on ``device`` (meta: the dry
+    run's structs)."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import train as T
+    if device.type == "meta":
+        params = T.param_struct(cfg, torch.bfloat16)
+        toks = torch.empty((batch, seq + 1), dtype=torch.int32, device=device)
+    else:
+        params = M.init_params(cfg, seed, torch.bfloat16, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                             generator=gen, device=device, dtype=torch.int32)
+    return params, T.opt_struct(params), {"tokens": toks[:, :-1],
+                                          "labels": toks[:, 1:]}
+
+
+def launch_counts(torch, args, smi, h_busy, l1_peak) -> None:
+    """(m3): ``op_cost.analyze`` of the reduced qwen3_4b prefill and of one
+    train step (remat), run for real in bfloat16 on the card and on the meta
+    device: flops and bytes equal (every differing op logged).  Each step
+    runs once on each device first (the rope frequencies are cached per
+    device).  Then the dry run's reckoning beside (h)'s and (l1)'s
+    measurements: qwen3_4b's decode memory term at (h)'s decode shape
+    against (h)'s device-busy step time, and its train-step memory at
+    (l1)'s shape against (l1)'s peak."""
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.optim.schedule import wsd_schedule
+    from repro_torch.runtime import serve
+    from repro_torch.runtime import train as T
+    c = COUNT_CONFIG
+    cfg = get(c["arch"]).reduced()
+
+    def lr(s):
+        return wsd_schedule(s, peak_lr=3e-4, warmup_steps=2, total_steps=8)
+    prefill = serve.make_prefill_step(cfg, s_cap=c["seq"] + 16)
+    step = T.make_train_step(cfg, lr_fn=lr, remat=True).fn
+    runs = {"prefill": lambda p, o, b: prefill(p, {"tokens": b["tokens"]}),
+            "train step": step}
+    counts = {}
+    for where in ("cuda", "meta"):
+        p, o, b = count_inputs(torch, cfg, torch.device(where), args.seed,
+                               c["batch"], c["seq"])
+        for kind, fn in runs.items():
+            fn(p, o, b)                                    # warm
+            counts[kind, where] = op_cost.analyze(fn, p, o, b)
+        torch.cuda.synchronize()
+    for kind in runs:
+        card, meta = counts[kind, "cuda"], counts[kind, "meta"]
+        ops = sorted(set(card.by_op) | set(meta.by_op))
+        diff = {n: (card.by_op.get(n), meta.by_op.get(n)) for n in ops
+                if card.by_op.get(n) != meta.by_op.get(n)}
+        calls = [sum(x.calls for x in t.by_op.values()) for t in (card, meta)]
+        kernels = {n: x.calls for n, x in card.by_op.items() if ":" in n}
+        log(f"(m3) {kind}, reduced {c['arch']} ({c['batch']} x {c['seq']} "
+            f"tokens, bfloat16): card {card.flops:.0f} flops "
+            f"{card.bytes:.0f} B in {calls[0]} ops; meta {meta.flops:.0f} "
+            f"flops {meta.bytes:.0f} B in {calls[1]} ops; kernels {kernels}; "
+            f"ops that differ: {diff or 'none'}")
+        assert (card.flops, card.bytes) == (meta.flops, meta.bytes), \
+            f"(m3) {kind}: the card's and the meta counts differ"
+    full = get(c["arch"])
+    mc = MODEL_CONFIG
+    for route, path in (("shortcut", "shortcut"), ("paged", "paged")):
+        p = T.param_struct(full, torch.bfloat16)
+        tok = torch.empty((mc["batch"],), dtype=torch.int32, device="meta")
+        if route == "paged":
+            cache = dryrun.paged_cache_struct(full, mc["batch"], mc["s_cap"],
+                                              mc["block"], torch.bfloat16)
+            t = op_cost.analyze(serve.make_paged_serve_step(full), p, cache,
+                                tok, tok)
+        else:
+            state = serve.decode_state_struct(full, mc["batch"], mc["s_cap"])
+            t = op_cost.analyze(serve.make_serve_step(full), p, state, tok)
+        terms = op_cost.roofline_terms(t.flops, t.bytes)
+        busy = h_busy[route]
+        log(f"(m3) dry run, {c['arch']} decode step at (h)'s shape "
+            f"({mc['batch']} sequences, S_cap {mc['s_cap']}, every row "
+            f"counted), {route} route: memory term "
+            f"{terms['memory_s'] * 1e3:.4f} ms ({t.bytes:.0f} B at 3.35 "
+            f"TB/s), compute term {terms['compute_s'] * 1e3:.4f} ms; (h) "
+            f"measured a device-busy step of "
+            + (f"{busy:.4f} ms" if busy is not None else "not measured")
+            + f" ({smi})")
+    tc = TRAIN_CONFIG
+    p = T.param_struct(full, torch.bfloat16)
+    toks = torch.empty((tc["batch"], tc["seq"]), dtype=torch.int32,
+                       device="meta")
+    t = op_cost.analyze(T.make_train_step(full, lr_fn=lr, remat=True).fn, p,
+                        T.opt_struct(p), {"tokens": toks, "labels": toks})
+    m = t.memory
+    log(f"(m3) dry run, {tc['arch']} train step at (l1)'s shape "
+        f"({tc['batch']} x {tc['seq']}, bfloat16, remat): peak of live "
+        f"bytes {m['total_bytes']} B (arguments {m['argument_bytes']}, "
+        f"outputs {m['output_bytes']}, temporaries {m['temp_bytes']}); "
+        f"{t.flops:.6g} flops counted (the recompute included), "
+        f"{t.bytes:.6g} B; (l1) measured a peak of {l1_peak} B ({smi})")
+
+
+def phase_launch(torch, args, smi, h_busy, l1_peak) -> None:
+    """(m): the serve CLI, the dry run, and the cost counter held to the
+    card."""
+    t0 = time.perf_counter()
+    launch_serve(torch, smi)
+    log(f"(m1) seconds {time.perf_counter() - t0:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch_dryrun(torch)
+    log(f"(m2) seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    launch_counts(torch, args, smi, h_busy, l1_peak)
+    log(f"(m3) seconds {time.perf_counter() - t0:.1f}")
 
 
 def main() -> int:
@@ -4364,6 +4654,7 @@ def main() -> int:
     mres = phase_model(torch, args, timer)
     report_model(mres, smi, kernels, measure_flash(torch, mres, timer))
     measure_decode(torch, mres, timer)
+    h_busy = {r: mres[r + "_trace"][0] for r in ("shortcut", "paged")}
     del mres
     gc.collect()
     torch.cuda.empty_cache()
@@ -4384,8 +4675,11 @@ def main() -> int:
     phase_train_twin(torch)
     clock.lap("k")
 
-    phase_train(torch, args, smi)
+    l1_peak = phase_train(torch, args, smi)
     clock.lap("l")
+
+    phase_launch(torch, args, smi, h_busy, l1_peak)
+    clock.lap("m")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,13 +5,16 @@ that take raw device pointers, sizes and the ``cudaStream_t`` of PyTorch's
 current stream, and return ``cudaGetLastError()``; :func:`check` raises on
 anything but 0.  Libraries go to ``build/repro_torch/`` at the root of the
 checkout, named with a hash of every file in ``csrc/`` and of the flags, so
-an edited source rebuilds.  Nothing here runs at import, and nothing falls
-back: a kernel that does not build or launch raises.
+an edited source rebuilds.  The attention wrappers also hand each call's
+flops and bytes to the active cost counter (:func:`record_cost`).
+Nothing here runs at import, and nothing falls back: a kernel that does
+not build or launch raises.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,6 +42,8 @@ _libs: dict = {}
 _count_lock = threading.Lock()
 #: kernel name -> ``__global__`` launches since the last :func:`reset_launches`
 LAUNCHES: collections.Counter = collections.Counter()
+#: the active cost counter (``launch/op_cost.OpCounter``), or None
+_cost_sink = None
 
 
 def count_launch(name: str, kernels: int = 1) -> None:
@@ -46,6 +51,26 @@ def count_launch(name: str, kernels: int = 1) -> None:
     kernels on the card."""
     with _count_lock:
         LAUNCHES[name] += kernels
+
+
+def set_cost_sink(sink) -> None:
+    """Make ``sink(name, cost)`` the active cost counter, which
+    :func:`record_cost` calls for every kernel call until it is set to
+    None (``launch/op_cost``'s counter).  One counter at a time: setting a
+    second while one is active raises ``RuntimeError``."""
+    global _cost_sink
+    with _count_lock:
+        if sink is not None and _cost_sink is not None:
+            raise RuntimeError("a cost counter is already active")
+        _cost_sink = sink
+
+
+def record_cost(name: str, cost, *args) -> None:
+    """Hand a kernel call to the active cost counter, if there is one:
+    ``cost(*args)`` returns its (flops, bytes) and is called only then."""
+    sink = _cost_sink
+    if sink is not None:
+        sink(name, functools.partial(cost, *args))
 
 
 def reset_launches() -> None:

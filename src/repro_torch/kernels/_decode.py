@@ -3,7 +3,10 @@ both are ``csrc/decode_attention.cu``'s ``decode_attention_launch``, which
 takes raw pointers and element strides, so transposed views are read in
 place, and launches two ``__global__`` kernels: the split kernel (one CTA
 per ``SPLIT`` tokens of one (b, kv head)) and the combine, which merges the
-splits' f32 partials in split order and folds in the self row."""
+splits' f32 partials in split order and folds in the self row.  Each call
+hands its flops and bytes (:func:`cost`) to the active cost counter
+(``launch/op_cost``), if there is one: on CUDA beside the launch, and on
+the meta device (the dry run) instead of it, returning an empty output."""
 from __future__ import annotations
 
 import ctypes
@@ -56,6 +59,32 @@ def _strides(name: str, t: torch.Tensor) -> tuple:
     return st[:3]
 
 
+def cost(q, k, lens, tables, S: int, window, has_self: bool) -> tuple:
+    """(flops, bytes) of one call (``chip_smoke.py``'s bound column for the
+    decode kernels is computed by this function): each live K and V row
+    read once (the self row counted; a window's rows only), q read and the
+    output written, the lengths and, paged, the table entries of the live
+    blocks; 4 hd flops a query head per live row.  Reads ``lens`` from the device; on the meta device it
+    has no values and every sequence counts as full (``S`` rows, or every
+    table entry)."""
+    B, KV, G, hd = q.shape
+    smax = S if tables is None else tables.shape[1] * S
+    if lens.device.type == "meta":
+        old = torch.full((B,), smax, dtype=torch.int64)
+    else:
+        old = lens.cpu().long().clamp(0, smax)
+    n = old + int(has_self)
+    if window is not None:
+        n = n.clamp(max=int(window))
+    live = int(n.sum())
+    nbytes = (2 * live * KV * hd * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * B)
+    if tables is not None:
+        first = (old + int(has_self) - n).clamp_min(0)  # first live old row
+        nbytes += 4 * int((-(-old // S) - first // S).clamp_min(0).sum())
+    return 4 * KV * G * hd * live, nbytes
+
+
 def launch(kernel: str, q, k, v, lens, tables, S: int, window, softcap,
            k_new=None, v_new=None) -> torch.Tensor:
     """Launch the shortcut (``tables is None``) or paged kernel; returns the
@@ -70,8 +99,9 @@ def launch(kernel: str, q, k, v, lens, tables, S: int, window, softcap,
     if (k_new is None) != (v_new is None):
         raise ValueError(f"{kernel}: k_new and v_new come together")
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel}: tensors must share one CUDA device")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"{kernel}: tensors must share one CUDA (or meta) "
+                         "device")
     if lens.dtype != torch.int32 or lens.device != dev:
         lens = lens.to(device=dev, dtype=torch.int32)
     lens = lens.contiguous()
@@ -108,6 +138,10 @@ def launch(kernel: str, q, k, v, lens, tables, S: int, window, softcap,
     # (B, KV, G, nsplit, hd)
     part = torch.empty(B * KV * G * nsplit * (hd + 2), dtype=torch.float32,
                        device=dev)
+    if dev.type == "meta":
+        _build.record_cost(kernel, cost, q, k, lens, tables, S, window,
+                           k_new is not None)
+        return out
     args = _ARGS(
         int(tables is not None), _DTYPES[q.dtype],
         q.data_ptr(), *_strides("q", q), k.data_ptr(), *_strides("k", k),
@@ -125,4 +159,6 @@ def launch(kernel: str, q, k, v, lens, tables, S: int, window, softcap,
         _build.stream(dev))
     _build.check(err, kernel)
     _build.count_launch(kernel, KERNELS_PER_CALL)
+    _build.record_cost(kernel, cost, q, k, lens, tables, S, window,
+                       k_new is not None)
     return out

@@ -12,6 +12,11 @@ on the tensor cores (``wgmma``, K/V tiles by TMA), everything else on the
 CUDA cores; on a CPU tensor it runs ``ref.flash_attention_ref``.  There is
 no backward kernel (the TPU kernel has none), so an input that requires a
 gradient is refused.
+
+Each call hands its flops and bytes (:func:`cost`) to the active cost
+counter (``launch/op_cost``), if there is one: on CUDA beside the launch,
+and on the meta device (the dry run) instead of it, returning an empty
+output.
 """
 from __future__ import annotations
 
@@ -87,6 +92,19 @@ def _check(q, k, v, causal: bool, prefix_len: int) -> None:
                          "kernel); call it under torch.no_grad()")
 
 
+def cost(q, k, causal: bool = True, window: Optional[int] = None,
+         prefix_len: int = 0) -> tuple:
+    """(flops, bytes) of one call: 4 hd flops a query head for each
+    visible (query, key) pair (Q K^T and P V), q, k and v read once and the
+    output written once.  ``chip_smoke.py``'s bound column for this kernel
+    is computed by this function."""
+    B, KV, G, Sq, hd = q.shape
+    pairs = ref.visible_pairs(Sq, k.shape[2], causal=causal, window=window,
+                              prefix_len=prefix_len)
+    return (4 * B * KV * G * hd * pairs,
+            2 * (q.numel() + k.numel()) * q.element_size())
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None, prefix_len: int = 0,
@@ -96,8 +114,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     sits at position ``i + Skv - Sq``; with ``prefix_len`` the positions
     below it see the whole prefix (``ref.flash_mask``).
 
-    On CUDA the result is a view of a (B, Sq, KV, G, hd) buffer, the model
-    layout, so that ``ops.mha_forward``'s transpose back costs no copy.
+    On CUDA (and meta) the result is a view of a (B, Sq, KV, G, hd) buffer,
+    the model layout, so that ``ops.mha_forward``'s transpose back costs no
+    copy.
     ``bq`` and ``bkv`` are the TPU kernel's tile sizes, which do not change
     the answer; they are accepted and ignored (the CUDA kernels tile by
     their own sizes and do not pad the ragged tails).  The tensor-core
@@ -118,9 +137,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          "float32/bfloat16")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or dev.type != "cuda":
+        if t.device != dev or dev.type not in ("cuda", "meta"):
             raise ValueError("flash_attention: tensors must share one CUDA "
-                             "device")
+                             "(or meta) device")
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} with strides "
                              f"{t.stride()} has a strided last axis")
@@ -130,6 +149,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty((B, Sq, KV, G, hd), dtype=q.dtype,
                       device=dev).permute(0, 2, 3, 1, 4)
     if out.numel() == 0:
+        return out
+    if dev.type == "meta":
+        _build.record_cost("flash_attention", cost, q, k, causal, window,
+                           prefix_len)
         return out
     lib = _build.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention_launch(
@@ -141,4 +164,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         _build.stream(dev))
     _build.check(err, "flash_attention")
     _build.count_launch("flash_attention")
+    _build.record_cost("flash_attention", cost, q, k, causal, window,
+                       prefix_len)
     return out

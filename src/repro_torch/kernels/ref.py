@@ -240,6 +240,23 @@ def flash_mask(Sq: int, Skv: int, *, causal: bool = True, window=None,
     return mask
 
 
+def visible_pairs(Sq: int, Skv: int, *, causal: bool = True, window=None,
+                  prefix_len: int = 0) -> int:
+    """The True entries of :func:`flash_mask` (right-aligned rows), counted
+    row by row without building the mask: the (query, key) pairs a flash
+    call computes."""
+    _check_window(window)
+    p = torch.arange(Skv - Sq, Skv, dtype=torch.int64)   # row positions
+    lo = (p - window + 1).clamp_min(0) if window is not None \
+        else torch.zeros_like(p)
+    if causal:
+        n = p - lo + 1 + lo.clamp(max=prefix_len)
+        n = torch.where(p < prefix_len, min(prefix_len, Skv), n)
+    else:
+        n = Skv - lo + lo.clamp(max=prefix_len)
+    return int(n.sum())
+
+
 def flash_attention_masked(q, k, v, mask, softcap=None) -> torch.Tensor:
     """Attention of q (B, KV, G, Sq, hd) over k/v (B, KV, Skv, hd) where
     ``mask`` (Sq, Skv) holds; float32 scores, the score matrix updated in

@@ -1,1 +1,3 @@
-"""Entry points of the port: ``python -m repro_torch.launch.train``."""
+"""Entry points of the port: ``python -m repro_torch.launch.train``,
+``python -m repro_torch.launch.serve`` and ``python -m
+repro_torch.launch.dryrun``."""

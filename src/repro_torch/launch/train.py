@@ -31,12 +31,13 @@ from repro_torch.runtime.watchdog import Heartbeat, StragglerMonitor, Watchdog
 
 
 def check_mesh(spec: str) -> None:
-    """Only the one-device mesh ``1x1``: the port runs on one card, and the
-    reference's data/model sharding has no counterpart here."""
+    """Only the one-device mesh ``1x1``: the port runs on one card."""
     if spec != "1x1":
         raise ValueError(
             f"mesh {spec}: the port trains on one device and takes only "
-            "--mesh 1x1 (data and model sharding are not ported)")
+            "--mesh 1x1 (the sharding rules are ported, "
+            "distributed/sharding.py; a sharded run has no meaning on one "
+            "card)")
 
 
 def main(argv=None) -> int:

@@ -21,6 +21,9 @@ current token's K/V row folded in by the kernel's combine.  On a CPU tensor
 it is :func:`decode_attention`, the reference's XLA computation in plain
 PyTorch, over the view or over the context gathered through the tables.
 
+A meta tensor takes the CUDA branch of both: the kernel wrappers record
+the call's cost for ``launch/op_cost`` and launch nothing (the dry run).
+
 Supports GQA/MQA, rope, qk-norm (qwen3), the attention logit softcap
 (gemma2), sliding windows, per-layer local/global switching and the
 bidirectional prefix (PaliGemma, ``prefix_len > 0``).
@@ -120,7 +123,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     on absolute positions.  On the CPU it is :func:`loop_attention`, whose
     prefix mask is the reference's (see there); at ``chunk_q >= prefix_len``
     (PaliGemma's 2048 against 256) the two agree."""
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return ops.mha_forward(q, k, v, causal=causal, window=window,
                                softcap=attn_softcap, prefix_len=prefix_len)
     return loop_attention(q, k, v, chunk_q=chunk_q, chunk_kv=chunk_kv,
@@ -308,7 +311,7 @@ def context_attention(q: torch.Tensor, ctx, i: int, ctx_len: torch.Tensor,
     pools in place and folds the current token in; on the CPU
     :func:`decode_attention` runs over the view or the gathered context."""
     paged = isinstance(ctx, PagedContext)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if paged:
             return ops.decode_paged(
                 q, ctx.k_pool[i], ctx.v_pool[i], ctx.block_tables, old_len,

@@ -119,18 +119,27 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16, *,
     ``"cuda"``), one layer at a time into the stacked tensors, so that a
     full-width init holds one layer's float32 draws at a time."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    return build_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dtype, dev)
+
+
+def build_params(cfg: ArchConfig, gen: Optional[torch.Generator], dtype,
+                 device: torch.device) -> dict:
+    """:func:`init_params`'s body on a resolved ``device``; with ``gen``
+    None on the meta device it draws nothing and allocates nothing
+    (``runtime/train.param_struct``)."""
     params: dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
         "layers": {},
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                  device=device),
     }
     for i in range(cfg.num_layers):
-        _stack_into(params["layers"], i, layer_init(gen, cfg, dtype, dev),
-                    cfg.num_layers)
+        _stack_into(params["layers"], i,
+                    layer_init(gen, cfg, dtype, device), cfg.num_layers)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                       dtype, dev).T.contiguous()
+                                       dtype, device).T.contiguous()
     return params
 
 

@@ -3,9 +3,9 @@
 int8 with its own float32 scale, the quantization residual kept to be added
 back next step.
 
-The reference's ``compressed_psum`` wraps the quantize -> all-reduce ->
-dequantize round trip over a data-parallel mesh axis; one card has no such
-axis, and it waits for the launch and distributed tools."""
+The reference's ``compressed_psum`` (the quantize -> all-reduce ->
+dequantize round trip over a data-parallel mesh axis) is not imitated: one
+card has no data-parallel axis to reduce over."""
 from __future__ import annotations
 
 from typing import Optional

@@ -20,9 +20,12 @@ returns the same tensors: it consumes its input state, as the reference's
 jitted step does with donated buffers, instead of cloning the whole view
 each step.  The paged step serves attention-only models: the reference's
 passes no SSM state (``ssm=()``), so its SSM decode cannot run there, and
-the port raises instead.  The reference's ``decode_state_struct``,
-``decode_state_names`` and ``decode_state_specs`` describe mesh shardings
-and wait for ROADMAP queue 1 item 4.
+the port raises instead.
+
+:func:`decode_state_struct` gives the state as meta tensors (the dry run's
+stand-in), :func:`decode_state_names` its logical dimension names and
+:func:`decode_state_specs` their specs on a mesh shape
+(``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -50,7 +53,39 @@ class DecodeState(NamedTuple):
 def decode_state_init(cfg: ArchConfig, batch: int, s_cap: int,
                       dtype=torch.bfloat16, *, device=None) -> DecodeState:
     """A zero state on ``device`` (default ``"cuda"``)."""
-    dev = resolve_device(device)
+    return _decode_state(cfg, batch, s_cap, dtype, resolve_device(device))
+
+
+def decode_state_struct(cfg: ArchConfig, batch: int, s_cap: int,
+                        dtype=torch.bfloat16) -> DecodeState:
+    """The state's shapes and dtypes as meta tensors, which hold no storage
+    (the dry run's stand-in, the reference's ``ShapeDtypeStruct``s)."""
+    return _decode_state(cfg, batch, s_cap, dtype, torch.device("meta"))
+
+
+def decode_state_names(cfg: ArchConfig) -> DecodeState:
+    """Logical dimension names parallel to :func:`decode_state_struct`
+    (``distributed/sharding.py``)."""
+    vk = vv = sc = ss = ()
+    if cfg.has_attention:
+        vk = vv = ["layer", "batch", "kv_heads", "ctx", "head_dim"]
+    if cfg.has_ssm:
+        sc = ["layer", "batch", None, "ssm_inner"]
+        ss = ["layer", "batch", "ssm_heads", None, None]
+    return DecodeState(view_k=vk, view_v=vv, ssm_conv=sc, ssm_state=ss,
+                       ctx_len=["batch"])
+
+
+def decode_state_specs(cfg: ArchConfig, struct: DecodeState, mesh,
+                       rules=None) -> DecodeState:
+    """The partition spec of each member of ``struct`` on ``mesh`` (axis
+    name -> size), () for an unused member."""
+    from repro_torch.distributed import sharding as shd
+    return shd.shardings_for(struct, decode_state_names(cfg), mesh, rules)
+
+
+def _decode_state(cfg: ArchConfig, batch: int, s_cap: int, dtype,
+                  dev: torch.device) -> DecodeState:
     L = cfg.num_layers
     vk = vv = sc = ss = ()
     if cfg.has_attention:

@@ -22,8 +22,9 @@ backward's kernels run on the autograd engine's device thread, outside the
 span; a trace finds them under its ``autograd::engine::evaluate_function``
 events) and :data:`OPTIMIZER_SPAN` around the update.
 
-The reference's ``param_struct`` and ``opt_struct`` (shape-only stand-ins
-for the dry run) wait for the launch tools.
+:func:`param_struct` and :func:`opt_struct` give the parameters and the
+optimizer state as meta tensors, which hold no storage (the dry run's
+stand-ins).
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
-from repro_torch.optim.adamw import (AdamWState, adamw_update, tree_leaves,
-                                     tree_unflatten)
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     tree_leaves, tree_unflatten)
 
 #: the profiler spans of a step
 FORWARD_SPAN = "repro_torch.train.forward"
@@ -119,3 +120,15 @@ def make_train_step(cfg: ArchConfig, *, lr_fn: Callable,
         return params, opt, {"loss": loss, "lr": lr, **om}
 
     return TrainStep(fn=step, grad_accum=grad_accum)
+
+
+def param_struct(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    """The parameters' shapes and dtypes as meta tensors: ``init_params``'s
+    tree, nothing drawn or allocated."""
+    return M.build_params(cfg, None, dtype, torch.device("meta"))
+
+
+def opt_struct(params_struct, factored: bool = False) -> AdamWState:
+    """``adamw_init`` over meta parameters: the optimizer state's shapes
+    and dtypes on the meta device."""
+    return adamw_init(params_struct, factored=factored)

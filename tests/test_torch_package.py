@@ -68,6 +68,13 @@ def test_imports_with_jax_and_repro_blocked():
             "                           keys, vals), bl.ch_lookup_many)):\n"
             "    assert look(table, keys + [999]).tolist() == vals + "
             "[0xFFFFFFFF]\n"
+            "from repro_torch.launch import dryrun\n"
+            "from repro_torch.launch import serve as serve_cli\n"
+            "assert serve_cli.main(['--arch', 'qwen3_4b', '--reduced', "
+            "'--device', 'cpu', '--gen', '3']) == 0\n"
+            "rec = dryrun.lower_cell('qwen3_4b', 'decode_32k', "
+            "path='paged')\n"
+            "assert rec['status'] == 'ok' and rec['hlo_flops'] > 0\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m, v in sys.modules.items() if v)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -102,6 +109,8 @@ def test_default_device_is_cuda(monkeypatch):
     from repro_torch.runtime.serve import decode_state_init
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch import dryrun
     cfg = get("qwen3_4b").reduced()
     cpu_cache = cache_create(1, 4, 2, 1, 8, 2, 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,6 +121,7 @@ def test_default_device_is_cuda(monkeypatch):
                  lambda: init_params(cfg), lambda: decode_state_init(cfg, 2, 8),
                  lambda: SyntheticLM(cfg, DataConfig(8, 2)),
                  lambda: train_main(["--arch", "qwen3_4b", "--reduced"]),
+                 lambda: serve_main(["--arch", "qwen3_4b", "--reduced"]),
                  lambda: resolve_device(None),
                  lambda: resolve_device("cuda:0")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -119,6 +129,9 @@ def test_default_device_is_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+    # the dry run reckons on the meta device: it needs no card
+    rec = dryrun.lower_cell("qwen3_4b", "decode_32k")
+    assert rec["status"] == "ok" and rec["chips"] == 1
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
