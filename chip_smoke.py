@@ -9,6 +9,7 @@ Phases, each of which raises on failure (exit code 1):
       ``nvidia-smi --query-gpu=name,power.limit`` reports them;
   (b) build: every CUDA source of the port with ``nvcc`` (all at once),
       and each kernel's registers, spills and shared memory from ptxas;
+      beside them three wrong lookup kernels for (c) (``LOOKUP_WRONG``);
   (c) each kernel against its plain PyTorch version on the card: bit for
       bit, the lookup (traditional and shortcut, N=1 and N=4 shards, key
       counts off the tile, absent keys), the routed lookup (four flag
@@ -32,7 +33,19 @@ Phases, each of which raises on failure (exit code 1):
       too), the keys 0, 0xFFFFFFFE and 0xFFFFFFFF, one chain of 2^16 keys
       (its ms per batch grow with the walk to its tail, logged, not with
       its keys), its capacity running out inside a batch, 2^17 chains
-      (three radix passes), and 2^16 keys into each table; the four lookup entry points (traditional, shortcut, stacked,
+      (three radix passes), and 2^16 keys into each table, the three
+      baseline lookup kernels held to their plain versions after every
+      batch of those traces; the baseline lookups on states that reach
+      their edges (``lookup_edge_states``: HT at 2^4 slots all taken, so a
+      miss wraps the window over the table twice, at 2^0, a crowded table's
+      full windows, keys behind an EMPTY slot; HTI mid-migration with the
+      old and with the new table first, a key in both, migrated slots'
+      values left behind, drained; CH chains of several buckets, heads -1,
+      duplicate appends, values equal to MISS, 5-slot rows, capacity out;
+      the keys 0, 0xFFFFFFFE and 0xFFFFFFFF among the probes), bit for bit,
+      each beside a wrong kernel that must differ (a probe past the first
+      EMPTY, the new table always first, a walk that stops after the head
+      bucket); the four lookup entry points (traditional, shortcut, stacked,
       routed) at S = 4, 8, 16 and 512 (the probe's scalar path at 4 and
       8), on indexes whose capacity ran out, absent keys and the EMPTY
       pattern among the probes; within 2e-5 (1 + |want|) in float32 and 2^-7 |want| + 2^-8 max |want| in
@@ -148,10 +161,14 @@ Phases, each of which raises on failure (exit code 1):
       (HT and HTI from 2^9 to 2^ceil(log2(n / 0.30)), CH with 2^(that - 4)
       chains of 16-slot buckets) but CH's capacity, 2^23 buckets (1 GiB),
       where the bench's n // 8 drops keys; CH must drop none.  Reports the
-      insert seconds per batch (7a's resize staircases), the insert call's
-      time on the last and the largest batch, ns/lookup of (d)'s probes
-      (plain PyTorch lookups: every key not lost returns its value, every
-      absent key MISS, and 2^16 sampled lookups equal those on a CPU copy),
+      insert seconds per batch (7a's resize staircases) with each batch's
+      host time before the launch, in it and in the sync after it and the
+      allocator's new segments, allocation retries and peak growth, the
+      insert call's time on the last and the largest batch, ns/lookup of
+      (d)'s probes through the lookup kernels (5 launches a table,
+      asserted: every key not lost returns its value, every absent key
+      MISS, and 2^16 sampled lookups equal those on a CPU copy) beside the
+      plain version's on the card on the same state (equal bit for bit),
       peak memory per table, each insert kernel's time on the last batch
       (one call on a copy of the state before it; two more calls are
       logged beside it) against its plain loop on the same state (HT's
@@ -261,7 +278,7 @@ dropped before (f), the sharded one before (g), the KV layer before (h),
 each table of (i) before the next and each model of (j) before the next,
 so each path reports its own peak memory; (l) frees each of its parts
 before the next.  The last three lines of
-standard output are the ``{"kernels": [...]}`` JSON (twelve kernels), the
+standard output are the ``{"kernels": [...]}`` JSON (fifteen kernels), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA,
 or without ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -435,18 +452,72 @@ def ptxas_summary(out: str) -> list:
     return [" | ".join(r) for r in rows] + notes
 
 
-def phase_build(_build) -> None:
+# (c): wrong lookup kernels that must fail on the edge states
+# (``lookup_edge_states``): the sound source of ``baselines_lookup.cu`` with
+# one line replaced, built beside the port's library and never into it
+LOOKUP_WRONG = {
+    "ht": ("if (k == repro::kEmpty) return repro::kMiss;", "",
+           "a probe that does not stop at the first EMPTY"),
+    "hti": ("TWO_TABLES && __ldg(a.count[0]) < __ldg(a.count[1]);", "false;",
+            "the new table always probed first"),
+    "ch": ("cur = __ldg(a.next + cur);", "cur = -1;",
+           "a walk that stops after the head bucket"),
+}
+
+
+def wrong_lookup_source(table: str, source: str) -> str:
+    """``baselines_lookup.cu``'s ``source`` with ``LOOKUP_WRONG[table]``'s
+    line replaced."""
+    old, new, _ = LOOKUP_WRONG[table]
+    assert source.count(old) == 1, f"the wrong {table} lookup's line moved"
+    return source.replace(old, new)
+
+
+def start_wrong_lookups(_build) -> dict:
+    """One ``nvcc`` per wrong lookup kernel, started at once; returns
+    ``{table: (process, library path)}``."""
+    out = _build.BUILD_DIR / "wrong_lookup"
+    out.mkdir(parents=True, exist_ok=True)
+    source = (_build.CSRC / "baselines_lookup.cu").read_text()
+    started = {}
+    for table in LOOKUP_WRONG:
+        src, lib = out / f"{table}.cu", out / f"lib{table}.so"
+        src.write_text(wrong_lookup_source(table, source))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(lib), str(src)]
+        started[table] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), lib)
+    return started
+
+
+def phase_build(_build) -> dict:
+    """(b); returns the wrong lookup kernels' libraries, by table."""
     t0 = time.perf_counter()
-    report = _build.build()
+    wrong = start_wrong_lookups(_build)
+    try:
+        report = _build.build()
+    except BaseException:
+        for proc, _ in wrong.values():
+            proc.kill()
+            proc.wait()
+        raise
     for name, (secs, out) in sorted(report.items()):
         log(f"(b) built {name}.cu in {secs:.1f} s")
         for line in ptxas_summary(out):
             log(f"(b)   {line}")
+    libs = {}
+    for table, (proc, lib) in wrong.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"(b) wrong {table} lookup:\n{out}"
+        libs[table] = lib
     log(f"(b) build wall time {time.perf_counter() - t0:.1f} s "
-        f"({len(report)} sources compiled)")
+        f"({len(report)} sources compiled, and {len(libs)} wrong lookup "
+        f"kernels for (c))")
     from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, tc_smem_bytes
     log("(b) flash_tc_kernel dynamic shared memory per CTA: " + ", ".join(
         f"hd {hd} {tc_smem_bytes(hd)} B" for hd in TC_HEAD_DIMS))
+    return libs
 
 
 def equal_bits(a, b) -> bool:
@@ -455,8 +526,9 @@ def equal_bits(a, b) -> bool:
         (hashing.storage_view(a) == hashing.storage_view(b)).all())
 
 
-def phase_kernels(torch, np, seed: int) -> None:
-    """(c): every kernel against its plain version on the same inputs."""
+def phase_kernels(torch, np, seed: int, wrong_lookups: dict) -> None:
+    """(c): every kernel against its plain version on the same inputs;
+    ``wrong_lookups``: the wrong lookup kernels' libraries (``phase_build``)."""
     from repro_torch.core import extendible_hashing as eh
     from repro_torch.core import hashing
     from repro_torch.kernels import eh_lookup as lk
@@ -581,6 +653,7 @@ def phase_kernels(torch, np, seed: int) -> None:
     torch.cuda.synchronize()
     insert_traces(torch, np, seed)
     baseline_traces(torch, np, seed)
+    baseline_lookups(torch, np, seed, wrong_lookups)
     lookup_shapes(torch, np, seed)
 
 
@@ -700,8 +773,14 @@ def baseline_traces(torch, np, seed: int) -> None:
         return [(k[i:i + n], vals_of(k[i:i + n].size), kw)
                 for i in range(0, k.size, n)]
 
+    lookups = {bl.HTState: (bl.ht_lookup_many, bl.ht_lookup_plain),
+               bl.HTIState: (bl.hti_lookup_many, bl.hti_lookup_plain),
+               bl.CHState: (bl.ch_lookup_many, bl.ch_lookup_plain)}
+    absent = keys_of(256, 399)
+
     def run(label, create, insert, batches, check=None):
         cu, host = create(dev), create("cpu")
+        lookup, plain = lookups[type(cu)]
         seen, ms = [], []
         kern.reset_passes()
         for kb, vb, kw in batches:
@@ -717,6 +796,11 @@ def baseline_traces(torch, np, seed: int) -> None:
                 if not equal_bits(getattr(cu, f).cpu(), getattr(host, f)):
                     raise AssertionError(f"(c) {label}: {f} differs from the "
                                          f"host loop")
+            q = torch.from_numpy(np.concatenate([kb, absent, edge]).view(
+                np.int32)).to(dev)
+            assert equal_bits(lookup(cu, q), plain(cu, q)), \
+                f"(c) {label}: the lookup kernel differs after batch " \
+                f"{len(seen) + 1}"
             seen.append(host)
         if check is not None:
             assert check(seen), f"(c) {label}: the trace missed its case"
@@ -724,7 +808,8 @@ def baseline_traces(torch, np, seed: int) -> None:
                    if getattr(host, f).dim() == 0}
         passes = kern.passes().get("ch_insert")
         log(f"(c) {label}: kernel == plain, {len(type(host)._fields)} "
-            f"arrays x {len(batches)} batches "
+            f"arrays x {len(batches)} batches, and the lookup kernel == "
+            f"plain after each (the batch, 256 absent keys, the edge keys) "
             f"({sum(b[0].size for b in batches)} keys); {scalars}; kernel "
             f"ms per batch {[round(x, 3) for x in ms]}"
             + (f"; {ch_pass_line(passes)}" if passes else ""))
@@ -828,6 +913,198 @@ def baseline_traces(torch, np, seed: int) -> None:
     run("ch_insert, 2^17 chains",
         lambda d: bl.ch_create(17, 1 << 17, 16, device=d), bl.ch_insert_many,
         split(k, 1 << 14))
+
+
+def lookup_edge_states(np, seed: int) -> list:
+    """(c) and ``tests/test_torch_baselines_lookup_mock.py``: baseline states
+    that reach the lookups' edges, built on the CPU, each ``(label, table,
+    arrays, probes)``: the state's arrays in field order (numpy) and its
+    probes (uint32; the keys 0, 0xFFFFFFFE and 0xFFFFFFFF among them)."""
+    from repro_torch import convert
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import hashing
+    rng = np.random.default_rng(seed + 500)
+    edge = np.array([0, 0xFFFFFFFE, MISS], np.uint32)
+    states = []
+
+    def keys_of(n, s):
+        return make_keys(n, 0, seed + s)[0]
+
+    def vals_of(n):
+        return rng.integers(1, MISS, n, dtype=np.uint32)
+
+    def add(label, table, st, probes, case):
+        assert case, f"lookup edge state {label!r} missed its case"
+        arrays = tuple(np.array(a.numpy()) for a in st)
+        probes = np.concatenate([np.asarray(probes, np.uint32), edge])
+        states.append((label, table, arrays, probes))
+
+    def ht_arrays(tk, tv, L):
+        return convert.ht_state_from_numpy(
+            (tk, tv, np.int32(L), np.int32((tk[:1 << L] != MISS).sum()),
+             np.int32(0)), device="cpu")
+
+    # HT: 2^4 slots all taken (fabricated), so a probe wraps the table twice
+    tk = np.full(1 << 10, MISS, np.uint32)
+    tv = np.zeros(1 << 10, np.uint32)
+    tk[:16], tv[:16] = keys_of(16, 501), vals_of(16)
+    add("HT 2^4 full (fabricated): every miss wraps the table twice", "ht",
+        ht_arrays(tk, tv, 4), np.concatenate([tk[:16], keys_of(32, 502)]),
+        True)
+    k = np.append(keys_of(4, 503), np.uint32(MISS))
+    st = bl.ht_insert_many(bl.ht_create(10, 4, device="cpu"), k, vals_of(5))
+    add("HT 2^4 by inserts, the EMPTY pattern stored", "ht", st,
+        np.concatenate([k, keys_of(40, 504)]),
+        int(st.size_log2) == 4 and int(st.count) == 5)
+    st = bl.ht_create(4, 0, device="cpu")
+    add("HT 2^0, empty", "ht", st, keys_of(8, 505), int(st.size_log2) == 0)
+    arrays, crowd = crowded_ht_state(np, rng, keys_of(300, 506))
+    add("HT crowded (fabricated): full windows", "ht",
+        convert.ht_state_from_numpy(arrays, device="cpu"),
+        np.concatenate([crowd, arrays[0][600:640], keys_of(300, 506)]),
+        bool((arrays[0][600:632] != MISS).all()))
+    # keys placed past the first EMPTY slot of their window (fabricated): the
+    # probe stops at the EMPTY slot and does not find them
+    L = 8
+    tk = np.full(1 << 10, MISS, np.uint32)
+    tv = np.zeros(1 << 10, np.uint32)
+    base = keys_of(60, 507)
+    for key, v in zip(base.tolist(), vals_of(60).tolist()):
+        bl.probe_put(tk, tv, key, v, L)
+    hidden = []
+    for key in keys_of(400, 508).tolist():
+        home = hashing.hash_dir_host(key) >> (32 - L)
+        window = [(home + j) % (1 << L) for j in range(32)]
+        empty = [j for j, p in enumerate(window) if tk[p] == MISS]
+        if len(empty) >= 2 and len(hidden) < 10:
+            tk[window[empty[1]]], tv[window[empty[1]]] = key, vals_of(1)[0]
+            hidden.append(key)
+    st = ht_arrays(tk, tv, L)
+    lost = bl.ht_lookup_plain(st, hidden).numpy().view(np.uint32)
+    add("HT keys behind an EMPTY slot (fabricated)", "ht", st,
+        np.concatenate([base, hidden, keys_of(64, 509)]),
+        int((lost == MISS).sum()) >= 5)
+
+    # HTI: migrate_batch 1 from 2^6 slots; the EMPTY pattern inserted first
+    # (never migrated); 5 inserts into the migration: the old table fuller
+    k = keys_of(200, 510)
+    st = bl.hti_create(12, 6, device="cpu")
+    st = bl.hti_insert_many(st, np.append(np.uint32(MISS), k[:27]),
+                            vals_of(28), migrate_batch=1)
+
+    def stale(st, avoid):
+        """Re-insert a key still waiting in the old table (past the next
+        slot the migration moves) with a new value: it is then in both."""
+        ptr = int(st.migrate_ptr)
+        old = st.old_keys.numpy().view(np.uint32)
+        key = next(int(x) for x in old[ptr + 1:1 << int(st.old_log2)]
+                   if x != MISS and int(x) not in avoid)
+        return bl.hti_insert_many(st, [key], vals_of(1), migrate_batch=1), key
+
+    def in_both(st, key):
+        return key in st.old_keys.numpy().view(np.uint32) \
+            and key in st.new_keys.numpy().view(np.uint32)
+
+    st, w1 = stale(st, ())
+    ok_, ov = (a.numpy().view(np.uint32) for a in (st.old_keys, st.old_vals))
+    ptr = int(st.migrate_ptr)
+    probes = np.concatenate([k[:60], keys_of(64, 511)])
+    add("HTI mid-migration, the old table first: a key in both tables, "
+        "migrated slots' values left behind", "hti", st, probes,
+        bool(st.migrating) and int(st.new_count) < int(st.old_count)
+        and in_both(st, w1) and bool(((ok_[:ptr] == MISS)
+                                      & (ov[:ptr] != 0)).any()))
+    i = 27
+    while int(st.new_count) < int(st.old_count):
+        st = bl.hti_insert_many(st, k[i:i + 1], vals_of(1), migrate_batch=1)
+        i += 1
+    st, w2 = stale(st, (w1,))
+    add("HTI mid-migration, the new table first: a key in both tables",
+        "hti", st, probes, bool(st.migrating) and in_both(st, w2)
+        and int(st.new_count) >= int(st.old_count))
+    st = bl.hti_insert_many(st, k[i:i + 1], vals_of(1), migrate_batch=4096)
+    add("HTI drained (the EMPTY pattern left in the old table)", "hti", st,
+        probes, not bool(st.migrating) and int(st.old_count) == 1)
+
+    # CH: 64 chains of 4-slot buckets: one chain of 4 buckets, others of
+    # one, most heads -1; the EMPTY pattern stored; duplicate appends (the
+    # first copy wins); stored values equal to MISS (the walk stops there)
+    chain = same_home_keys(np, rng, 14, 6, 0)
+    other = keys_of(20, 512)
+    k = np.concatenate([chain[:7], other[:10], [MISS], chain[7:], other[10:],
+                        chain[[1, 9, 13]]]).astype(np.uint32)
+    v = vals_of(k.size)
+    v[[2, 20]] = MISS
+    st = bl.ch_insert_many(bl.ch_create(6, 64, 4, device="cpu"), k, v)
+    heads, nxt = st.heads.numpy(), st.next_bucket.numpy()
+    walk, cur = 0, int(heads[0])
+    while cur >= 0:
+        walk, cur = walk + 1, int(nxt[cur])
+    add("CH chains of several buckets, heads -1, duplicate appends, values "
+        "equal to MISS", "ch", st, np.concatenate([k, keys_of(64, 513)]),
+        walk == 5 and int((heads == -1).sum()) > 0 and k[20] == chain[9])
+    k = np.append(keys_of(29, 514), np.uint32(MISS))
+    st = bl.ch_insert_many(bl.ch_create(0, 16, 5, device="cpu"), k,
+                           vals_of(30))
+    add("CH one chain (T 0) of 5-slot rows (the slot-by-slot search)", "ch",
+        st, np.concatenate([k, keys_of(32, 515)]),
+        int(st.num_buckets) == 6)
+    k = keys_of(60, 516)
+    st = bl.ch_insert_many(bl.ch_create(3, 8, 4, device="cpu"), k,
+                           vals_of(60))
+    add("CH capacity out (dropped keys)", "ch", st, k, int(st.dropped) > 0)
+    return states
+
+
+def baseline_lookups(torch, np, seed: int, wrong: dict) -> None:
+    """(c): the three lookup kernels against their plain versions on the
+    card, bit for bit, on ``lookup_edge_states``; each wrong kernel
+    (``wrong``: table -> its library, ``LOOKUP_WRONG``) must differ from
+    the plain version on a state of its table."""
+    import ctypes
+
+    from repro_torch import convert
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import hashing
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import baselines_lookup as look
+    dev = torch.device("cuda")
+    kinds = {"ht": (convert.ht_state_from_numpy, bl.ht_lookup_many,
+                    bl.ht_lookup_plain, "ht_lookup"),
+             "hti": (convert.hti_state_from_numpy, bl.hti_lookup_many,
+                     bl.hti_lookup_plain, "hti_lookup"),
+             "ch": (convert.ch_state_from_numpy, bl.ch_lookup_many,
+                    bl.ch_lookup_plain, "ch_lookup")}
+    libs = {}
+    for table, path in wrong.items():
+        libs[table] = ctypes.CDLL(str(path))
+        for fn, argtypes in look._SIGNATURES.items():
+            getattr(libs[table], fn).argtypes = argtypes
+            getattr(libs[table], fn).restype = ctypes.c_int
+    sound = look._lib()
+    differ = dict.fromkeys(kinds, 0)
+    for label, table, arrays, probes in lookup_edge_states(np, seed):
+        make, lookup, plain, name = kinds[table]
+        st = make(arrays, device=dev)
+        q = torch.from_numpy(probes.view(np.int32)).to(dev)
+        before = _build.launches().get(name, 0)
+        got, want = lookup(st, q), plain(st, q)
+        assert _build.launches().get(name, 0) == before + 1, \
+            f"(c) {label}: {name} did not launch"
+        assert equal_bits(got, want), f"(c) {label}: {name} differs"
+        _build._libs["baselines_lookup"] = libs[table]
+        try:
+            bad = lookup(st, q)
+        finally:
+            _build._libs["baselines_lookup"] = sound
+        n_bad = int((hashing.bits(bad) != hashing.bits(want)).sum())
+        differ[table] += n_bad
+        hits = int((hashing.bits(want) != -1).sum())
+        log(f"(c) {name} kernel == plain, {label}: {probes.size} probes, "
+            f"{hits} not MISS; the wrong kernel ({LOOKUP_WRONG[table][2]}) "
+            f"differs on {n_bad}")
+    for table, n in differ.items():
+        assert n > 0, f"(c) the wrong {table} lookup agrees on every state"
 
 
 def lookup_shapes(torch, np, seed: int) -> None:
@@ -3347,7 +3624,10 @@ FIG7_CH_CAPACITY = 1 << 23
 FIG7_SOURCES = {
     "ht_insert": "src/repro/core/baselines.py:113",
     "hti_insert": "src/repro/core/baselines.py:219",
-    "ch_insert": "src/repro/core/baselines.py:323"}
+    "ch_insert": "src/repro/core/baselines.py:323",
+    "ht_lookup": "src/repro/core/baselines.py:122",
+    "hti_lookup": "src/repro/core/baselines.py:240",
+    "ch_lookup": "src/repro/core/baselines.py:351"}
 # (i): besides the last batch, the batch each table's kernel is held to its
 # plain loop on, one whose grid passes sweep more items than the kernel's
 # grid has threads (the grid the launcher reports, as many blocks as fit on
@@ -3359,15 +3639,89 @@ FIG7_CHECK = {"HT": 1, "HTI": 3, "CH": 1}
 # (i): the insert kernel rows' calls, each on a fresh copy of the state; the
 # row is the first, the others are logged beside it
 FIG7_KERNEL_CALLS = 3
+# (i): the timed lookups, each through the kernel (the Timer's warm-up and
+# timed calls), and so the lookup kernel's launches in a table's run
+FIG7_LOOKUP_WARMUP, FIG7_LOOKUP_REPS = 2, 3
+# (i): the allocator's statistics logged around each insert batch
+FIG7_MEMORY_STATS = ("segment.all.allocated", "num_alloc_retries",
+                     "allocated_bytes.all.peak")
+
+
+def open_probes(torch, table_keys, log2: int, q, chunk: int = 1 << 20):
+    """Per key of ``q`` (int32 bits), the slots its probe reads in an open
+    table of ``2**log2`` slots (up to the first slot that holds the key or
+    is EMPTY, else the whole window) and whether it stopped on the key."""
+    from repro_torch.core import hashing
+    lens, hits = [], []
+    for i in range(0, q.numel(), chunk):
+        c = q[i:i + chunk]
+        pos = hashing.window_positions(hashing.hash_dir(c), log2, 32)
+        probed = hashing.bits(table_keys)[pos]
+        ok, j = hashing.probe_slot(probed, c)
+        at = probed.gather(1, j.long().unsqueeze(1)).squeeze(1)
+        lens.append(torch.where(ok, j + 1, 32))
+        hits.append(ok & (at == c))
+    return torch.cat(lens), torch.cat(hits)
 
 
 def open_probed(torch, table_keys, log2: int, q) -> int:
-    """Slots the probes of keys ``q`` (int32 bits) read in an open table of
-    ``2**log2`` slots: up to the key's slot, or the whole window."""
+    """Slots the probes of keys ``q`` read in an open table (``open_probes``;
+    for a key the table holds, up to its slot)."""
+    return int(open_probes(torch, table_keys, log2, q)[0].sum())
+
+
+def ch_walks(torch, st, q, chunk: int = 1 << 20):
+    """Per key of ``q`` (int32 bits), the bucket rows CH's lookup reads
+    (its chain to the first hit, or whole) and whether it hit."""
     from repro_torch.core import hashing
-    pos = hashing.window_positions(hashing.hash_dir(q), log2, 32)
-    found, j = hashing.probe_hit(hashing.bits(table_keys)[pos], q)
-    return int(torch.where(found, j + 1, 32).sum())
+    bk = hashing.bits(st.bucket_keys)
+    rows, hits = [], []
+    for i in range(0, q.numel(), chunk):
+        c = q[i:i + chunk]
+        cur = st.heads[hashing.dir_slot(hashing.hash_dir(c),
+                                        st.table_log2).long()].long()
+        n_rows = torch.zeros_like(cur)
+        hit = torch.zeros_like(cur, dtype=torch.bool)
+        live = cur >= 0
+        while bool(live.any()):
+            idx = live.nonzero().squeeze(1)
+            b = cur[idx]
+            found = (bk[b] == c[idx].unsqueeze(1)).any(1)
+            n_rows[idx] += 1
+            hit[idx] = found
+            cur[idx] = torch.where(found, -1, st.next_bucket[b].long())
+            live[idx] = cur[idx] >= 0
+        rows.append(n_rows)
+        hits.append(hit)
+    return torch.cat(rows), torch.cat(hits)
+
+
+def lookup_bytes_baseline(torch, name, st, q) -> int:
+    """Bytes the lookup of keys ``q`` in the baseline state ``st`` must
+    move: each key read and each result written; for the open tables the
+    probed key slots up to the stopping one (``open_probes``) and the value
+    on a hit, HTI's second table only for the keys its first misses; for CH
+    the chain's head, each bucket row read (whole), each link followed and
+    the value on a hit."""
+    n = q.numel()
+    if name == "ch_lookup":
+        rows, hits = ch_walks(torch, st, q)
+        S = st.bucket_keys.shape[1]
+        return (12 * n + 4 * S * int(rows.sum())
+                + 4 * int((rows - hits.long()).sum()) + 4 * int(hits.sum()))
+    if name == "ht_lookup":
+        tables = [(st.keys, int(st.size_log2))]
+    else:
+        tables = [(st.new_keys, int(st.new_log2)),
+                  (st.old_keys, int(st.old_log2))]
+        if int(st.new_count) < int(st.old_count):
+            tables.reverse()
+    total = 8 * n
+    for keys, log2 in tables:
+        lens, hits = open_probes(torch, keys, log2, q)
+        total += 4 * int(lens.sum()) + 4 * int(hits.sum())
+        q = q[~hits]
+    return total
 
 
 def baseline_bytes(torch, name, before, after, keys) -> int:
@@ -3418,10 +3772,39 @@ def state_err(torch, a, b) -> int:
                for x, y in zip(a, b))
 
 
+class LaunchClock:
+    """The host clock at entry to and exit from the insert launchers of
+    ``kernels/baselines_insert.py`` (its library's ``*_insert_launch``),
+    so that (i) can split a batch's host time into before the launch, the
+    launch and the sync after it.  It wraps the library the module loads
+    (``baselines_insert._lib``) and changes nothing the call does."""
+
+    def __init__(self, kern):
+        self.kern, self.lib_of = kern, kern._lib
+        self.start = self.end = None
+        kern._lib = lambda: self
+
+    def __getattr__(self, fn):
+        f = getattr(self.lib_of(), fn)
+        if not fn.endswith("_insert_launch"):
+            return f
+
+        def call(*a):
+            self.start = time.perf_counter()
+            try:
+                return f(*a)
+            finally:
+                self.end = time.perf_counter()
+        return call
+
+    def close(self) -> None:
+        self.kern._lib = self.lib_of
+
+
 def phase_fig7(torch, np, args, timer, smi) -> tuple:
     """(i): HT, HTI and CH take (d)'s keys in 16 batches through the
-    users' entry points; returns the per-table results and the three
-    kernel rows (launches from this phase)."""
+    users' entry points; returns the per-table results and the six kernel
+    rows, three inserts and three lookups (launches from this phase)."""
     from repro_torch.core import baselines as bl
     from repro_torch.core import hashing
     from repro_torch.kernels import _build
@@ -3440,15 +3823,16 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
     def live_open(*tables):
         return int(sum((hashing.bits(t) != -1).sum() for t in tables))
 
-    # name, kernel, create, insert, lookup, the kernel alone, live entries
-    # (slots that hold a key), the entries the state's own counts say it
-    # holds, and the items a batch's grid passes sweep (HT: its largest
-    # doubling's old slots; HTI: those of a migration it started, which it
-    # also drains here; CH: the batch's keys)
+    # name, kernel, create, insert, lookup (the kernel) and its plain
+    # version, the insert kernel alone, live entries (slots that hold a
+    # key), the entries the state's own counts say it holds, and the items a
+    # batch's grid passes sweep (HT: its largest doubling's old slots; HTI:
+    # those of a migration it started, which it also drains here; CH: the
+    # batch's keys)
     tables = [
         ("HT", "ht_insert",
          lambda: bl.ht_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
-         bl.ht_insert_many, bl.ht_lookup_many,
+         bl.ht_insert_many, bl.ht_lookup_many, bl.ht_lookup_plain,
          lambda st, k, v: kern.ht_insert_(st, k, v, 0.35),
          lambda st: live_open(st.keys),
          lambda st: int(st.count),
@@ -3456,7 +3840,7 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
                        if int(b.size_log2) > int(a.size_log2) else 0)),
         ("HTI", "hti_insert",
          lambda: bl.hti_create(max_log2, FIG7_INITIAL_LOG2, device=dev),
-         bl.hti_insert_many, bl.hti_lookup_many,
+         bl.hti_insert_many, bl.hti_lookup_many, bl.hti_lookup_plain,
          lambda st, k, v: kern.hti_insert_(st, k, v, 0.35, 64),
          lambda st: live_open(st.new_keys, st.old_keys),
          lambda st: int(st.new_count) + int(st.old_count),
@@ -3465,7 +3849,7 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         ("CH", "ch_insert",
          lambda: bl.ch_create(max_log2 - 4, FIG7_CH_CAPACITY, FIG7_CH_SLOTS,
                               device=dev),
-         bl.ch_insert_many, bl.ch_lookup_many,
+         bl.ch_insert_many, bl.ch_lookup_many, bl.ch_lookup_plain,
          lambda st, k, v: kern.ch_insert_(st, k, v),
          lambda st: int(st.counts.sum()),
          lambda st: n - int(st.dropped),
@@ -3492,8 +3876,10 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
                 f"{p['grid_threads']} threads")
 
     results, rows = {}, []
-    for (name, kname, create, insert, lookup, kernel, live_of, count_of,
-         grid_work) in tables:
+    clock = LaunchClock(kern)
+    for (name, kname, create, insert, lookup, plain_lookup, kernel, live_of,
+         count_of, grid_work) in tables:
+        lname = kname.replace("insert", "lookup")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -3506,14 +3892,23 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
             prev = st
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            m0 = torch.cuda.memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
             st = insert(prev, keys[i:i + batch], vals[i:i + batch])
             end.record()
             torch.cuda.synchronize()
-            batch_s.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            batch_s.append(t1 - t0)
             batch_ms.append(start.elapsed_time(end))
+            m1 = torch.cuda.memory_stats()
+            log(f"(i) {name} batch {b} host ms: before the launch "
+                f"{(clock.start - t0) * 1e3:.4f}, in the launch "
+                f"{(clock.end - clock.start) * 1e3:.4f}, in the sync "
+                f"{(t1 - clock.end) * 1e3:.4f}; allocator deltas " + ", ".join(
+                    f"{k} {m1.get(k, 0) - m0.get(k, 0)}"
+                    for k in FIG7_MEMORY_STATS))
             if b == FIG7_CHECK.get(name):
                 swept = grid_work(prev, st)
                 grid = kern.passes()[kname]["grid_threads"]
@@ -3547,9 +3942,16 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         if name == "CH":
             assert int(st.dropped) == 0, "(i) CH dropped keys"
 
-        # lookups: every present key not lost returns its value, every
-        # absent key MISS, and a sample equals the lookup on a CPU copy
-        ms, got = timer(lambda: lookup(st, probe))
+        # lookups through the kernel: every present key not lost returns its
+        # value, every absent key MISS, and a sample equals the lookup on a
+        # CPU copy; then the plain version on the card, on the same state
+        ms, got = timer(lambda: lookup(st, probe), reps=FIG7_LOOKUP_REPS,
+                        warmup=FIG7_LOOKUP_WARMUP)
+        look_launches = _build.launches()
+        calls = FIG7_LOOKUP_WARMUP + FIG7_LOOKUP_REPS
+        assert look_launches.get(lname, 0) == calls, \
+            f"(i) {lname} launched {look_launches.get(lname, 0)} times in " \
+            f"{calls} lookups"
         gi = got.view(torch.int32)
         present = gi[:n]
         miss = int((present == -1).sum())
@@ -3569,18 +3971,30 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
         plain = lookup(host_st, probe[idx].cpu())
         assert equal_bits(gi[idx].cpu(), hashing.bits(plain)), \
             f"(i) {name}: card lookups differ from the CPU's"
+        plain_ms, want = timer(lambda: plain_lookup(st, probe))
+        assert _build.launches().get(lname, 0) == calls, \
+            f"(i) {name}: the plain lookup launched {lname}"
+        look_err = err(got, want)
         peak = torch.cuda.max_memory_allocated()
         resident = sum(a.nbytes for a in st)
         ns = ms * 1e6 / probe.numel()
-        log(f"(i) {name} lookup (plain PyTorch) {ns:.4f} ns/lookup "
-            f"({probe.numel()} lookups, {n_absent} absent; {ms:.4f} ms); "
-            f"present keys MISS {miss} (not stored: dropped "
-            f"{int(st.dropped)}); stored entries == the state's counts; "
-            f"2^16 sampled lookups == the CPU's; state {resident} B "
+        plain_ns = plain_ms * 1e6 / probe.numel()
+        log(f"(i) {name} lookup (kernel {lname}) {ns:.4f} ns/lookup "
+            f"({probe.numel()} lookups, {n_absent} absent; {ms:.4f} ms; "
+            f"{calls} launches); plain (vectorised PyTorch on the card, the "
+            f"same state) {plain_ns:.4f} ns/lookup ({plain_ms:.4f} ms), max "
+            f"|err| {look_err}; present keys MISS {miss} (not stored: "
+            f"dropped {int(st.dropped)}); stored entries == the state's "
+            f"counts; 2^16 sampled lookups == the CPU's; state {resident} B "
             f"resident; max_memory_allocated {peak} B over the table's run "
             f"(the state, its copy-on-write clone, the doubling's work "
-            f"space, keys, probes, lookup chunks); card {smi}")
-        del got, gi, present, plain, host_st
+            f"space, keys, probes, the plain lookup's chunks); card {smi}")
+        rows.append(_row(lname,
+                         "src/repro_torch/kernels/csrc/baselines_lookup.cu",
+                         FIG7_SOURCES[lname], look_launches, ms, plain_ms,
+                         lookup_bytes_baseline(torch, lname, st, probe),
+                         look_err, phase="i"))
+        del got, gi, present, plain, host_st, want
 
         # the kernel row: the last batch again on the state before it, one
         # call on a fresh copy; FIG7_KERNEL_CALLS - 1 more calls, each on a
@@ -3625,9 +4039,11 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
                          max(held), phase="i"))
         results[name] = dict(insert_s=sum(batch_s), batch_s=batch_s,
                              last_ms=batch_ms[-1], big_ms=batch_ms[big],
-                             big=big + 1, ns=ns, peak=peak, resident=resident,
-                             dropped=int(st.dropped), miss=miss)
+                             big=big + 1, ns=ns, plain_ns=plain_ns, peak=peak,
+                             resident=resident, dropped=int(st.dropped),
+                             miss=miss)
         del st, before_last, work
+    clock.close()
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
     assert not bad, f"(i) kernels differ from their plain loops: {bad}"
     return results, rows
@@ -3637,13 +4053,14 @@ def report_fig7(res, eh, smi) -> None:
     """(i): Fig. 7's five rows on one card: 7a insert seconds (the per-batch
     staircase), 7b ns/lookup; EH and Shortcut-EH from (d)/(e)."""
     log(f"(i) Fig. 7 on {smi} ({eh['n_keys']} keys in 16 batches; lookups of "
-        f"them and {eh['n_absent']} absent keys; the baselines' lookups are "
-        f"plain PyTorch, EH's and Shortcut-EH's the CUDA kernels):")
+        f"them and {eh['n_absent']} absent keys; every lookup a CUDA kernel, "
+        f"the baselines' plain versions beside them):")
     for name, r in res.items():
         log(f"(i)   {name:12s} insert {r['insert_s']:.6f} s, per batch "
             f"{[round(x, 4) for x in r['batch_s']]}; lookup "
-            f"{r['ns']:.4f} ns/lookup; state {r['resident']} B resident, "
-            f"peak {r['peak']} B over its run; dropped {r['dropped']}")
+            f"{r['ns']:.4f} ns/lookup (plain {r['plain_ns']:.4f}); state "
+            f"{r['resident']} B resident, peak {r['peak']} B over its run; "
+            f"dropped {r['dropped']}")
     log(f"(i)   {'EH':12s} insert {eh['insert_s']:.6f} s (ShortcutEH.insert: "
         f"the EH insert and the replay queue), per batch "
         f"{[round(x, 4) for x in eh['batch_s']]}; lookup "
@@ -4595,9 +5012,9 @@ def main() -> int:
     timer = Timer(torch)
     smi = phase_device(torch)
     clock.lap("a")
-    phase_build(_build)
+    wrong_lookups = phase_build(_build)
     clock.lap("b")
-    phase_kernels(torch, np, args.seed)
+    phase_kernels(torch, np, args.seed, wrong_lookups)
     phase_attention(torch, np, args.seed)
     phase_flash(torch, args.seed)
     clock.lap("c")

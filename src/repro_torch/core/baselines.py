@@ -30,8 +30,12 @@ Each ``*_insert_many`` copies the state and inserts in place.  On CUDA it
 is one kernel launch per batch (``kernels/baselines_insert.py``; HT's and
 HTI's place the batch by claim rounds over the whole card, doublings and
 migration starts included); on the CPU it is the per-key loop below,
-which is also the kernels' plain version.  The lookups are vectorised PyTorch on either device (the JAX
-package's are ``vmap``s, no Pallas kernel), in chunks of ``2**20`` keys.
+which is also the kernels' plain version.  Each ``*_lookup_many`` is one
+kernel launch on CUDA (``kernels/baselines_lookup.py``, which reads the
+state's scalars on the card: no host sync; the JAX package's are jitted
+``vmap``s, no Pallas kernel); on the CPU it is vectorised PyTorch in chunks
+of ``2**20`` keys (``*_lookup_plain``, the kernels' plain version, which
+runs on either device).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from repro_torch.core.hashing import (EMPTY_SENTINEL, MISS_BITS, dir_slot,
                                       hash_dir)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import baselines_insert as kern
+from repro_torch.kernels import baselines_lookup as look
 
 PROBE_WINDOW = 32  # static linear-probe window; ample for load <= 0.35
 LOOKUP_CHUNK = 1 << 20
@@ -79,7 +84,8 @@ def _over_threshold(count: int, size_log2: int, load_threshold) -> bool:
 
 # ---------------------------------------------------------------------------
 # The probe of the open-addressing tables, on numpy rows in place (plain
-# version of the kernels) and vectorised (lookups).
+# version of the insert kernels) and vectorised (plain version of the lookup
+# kernel).
 # ---------------------------------------------------------------------------
 
 def probe_put(keys: np.ndarray, vals: np.ndarray, key: int, value: int,
@@ -187,10 +193,17 @@ def ht_insert(st: HTState, key, value,
     return ht_insert_many(st, [int(key)], [int(value)], load_threshold)
 
 
-def ht_lookup_many(st: HTState, keys) -> torch.Tensor:
+def ht_lookup_plain(st: HTState, keys) -> torch.Tensor:
+    """The kernel's plain version, on the state's device."""
     L = int(st.size_log2)
     return _chunked(lambda q: _probe_find(st.keys, st.vals, q, L), keys,
                     st.keys.device)
+
+
+def ht_lookup_many(st: HTState, keys) -> torch.Tensor:
+    if st.keys.device.type == "cuda":
+        return look.ht_lookup(st, keys)
+    return ht_lookup_plain(st, keys)
 
 
 def ht_lookup(st: HTState, key) -> torch.Tensor:
@@ -305,12 +318,19 @@ def _hti_find(st: HTIState, q: torch.Tensor, old_log2: int, new_log2: int,
     return torch.where(first != MISS_BITS, first, second)
 
 
-def hti_lookup_many(st: HTIState, keys) -> torch.Tensor:
-    """Probe the fuller table first, then the other (paper §4.2)."""
+def hti_lookup_plain(st: HTIState, keys) -> torch.Tensor:
+    """The kernel's plain version, on the state's device."""
     oL, nL = int(st.old_log2), int(st.new_log2)
     new_first = int(st.new_count) >= int(st.old_count)
     return _chunked(lambda q: _hti_find(st, q, oL, nL, new_first), keys,
                     st.new_keys.device)
+
+
+def hti_lookup_many(st: HTIState, keys) -> torch.Tensor:
+    """Probe the fuller table first, then the other (paper §4.2)."""
+    if st.new_keys.device.type == "cuda":
+        return look.hti_lookup(st, keys)
+    return hti_lookup_plain(st, keys)
 
 
 def hti_lookup(st: HTIState, key) -> torch.Tensor:
@@ -420,8 +440,15 @@ def _ch_find(st: CHState, q: torch.Tensor) -> torch.Tensor:
     return val
 
 
-def ch_lookup_many(st: CHState, keys) -> torch.Tensor:
+def ch_lookup_plain(st: CHState, keys) -> torch.Tensor:
+    """The kernel's plain version, on the state's device."""
     return _chunked(lambda q: _ch_find(st, q), keys, st.heads.device)
+
+
+def ch_lookup_many(st: CHState, keys) -> torch.Tensor:
+    if st.heads.device.type == "cuda":
+        return look.ch_lookup(st, keys)
+    return ch_lookup_plain(st, keys)
 
 
 def ch_lookup(st: CHState, key) -> torch.Tensor:

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("eh_lookup", "ragged_copy", "eh_insert", "decode_attention",
-           "flash_attention", "baselines_insert")
+           "flash_attention", "baselines_insert", "baselines_lookup")
 # compute_90a, not plain -arch=sm_90a (whose PTX targets compute_90):
 # wgmma exists only for the "a" target.  --split-compile=0 optimizes a
 # source's kernels in parallel on every core (decode_attention.cu holds 40
