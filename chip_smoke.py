@@ -86,8 +86,14 @@ Phases, each of which raises on failure (exit code 1):
       dropped, the prefix keys past the causal tile range skipped and the
       prefix's window term left out, where each differs from the sound
       mask at that shape); each flash line names the
-      kernel that ran: ``tensor-core`` (bfloat16 at hd 64, 128, 256) or
-      ``simt`` (float32, and bfloat16 at hd 16 and 32);
+      kernel that ran: ``tensor-core`` (bfloat16 at hd 64, 128, 256),
+      ``3xtf32`` (float32 at hd 64, 128, 256) or ``simt`` (hd 16 and 32);
+      each float32 check also holds one TF32 pass (the plain version with
+      q, k, v and p rounded to TF32) past the limit; then the float32
+      kernel is timed at (m1)'s prefill layer beside the plain version,
+      float32 ``scaled_dot_product_attention`` and its 3xTF32 bound (the
+      ``flash_attention_f32`` row of the kernels line, with (m1)'s
+      launches);
   (d) the flat path at full width: ``ShortcutEH(max_global_depth=16,
       bucket_slots=512, capacity=65536)`` takes 2**log2_keys unique keys
       in 16 batches, then lookups of every key and of 2**20 absent keys,
@@ -278,7 +284,7 @@ dropped before (f), the sharded one before (g), the KV layer before (h),
 each table of (i) before the next and each model of (j) before the next,
 so each path reports its own peak memory; (l) frees each of its parts
 before the next.  The last three lines of
-standard output are the ``{"kernels": [...]}`` JSON (fifteen kernels), the
+standard output are the ``{"kernels": [...]}`` JSON (sixteen kernels), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA,
 or without ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -298,6 +304,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 PEAK_BF16 = 989e12               # H100 SXM dense bfloat16 tensor cores (same)
+PEAK_TF32 = 494.7e12             # ... dense TF32 tensor cores (same)
+PEAK_F32 = 67e12                 # ... float32 on the CUDA cores (same)
+# a float32 flash flop is three TF32 products on the tensor cores (3xTF32)
+PEAK_F32_FLASH = PEAK_TF32 / 3
 MISS = 0xFFFFFFFF
 N_EXTRA = 1 << 14                # keys beyond the absent ones, for (f)
 # (g): the KV widths of qwen3_4b (src/repro/configs/qwen3_4b.py: 36 layers,
@@ -514,9 +524,12 @@ def phase_build(_build) -> dict:
     log(f"(b) build wall time {time.perf_counter() - t0:.1f} s "
         f"({len(report)} sources compiled, and {len(libs)} wrong lookup "
         f"kernels for (c))")
+    import torch
     from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, tc_smem_bytes
-    log("(b) flash_tc_kernel dynamic shared memory per CTA: " + ", ".join(
-        f"hd {hd} {tc_smem_bytes(hd)} B" for hd in TC_HEAD_DIMS))
+    for kernel, dtype in (("flash_tc_kernel", torch.bfloat16),
+                          ("flash_tf32x3_kernel", torch.float32)):
+        log(f"(b) {kernel} dynamic shared memory per CTA: " + ", ".join(
+            f"hd {hd} {tc_smem_bytes(hd, dtype)} B" for hd in TC_HEAD_DIMS))
     return libs
 
 
@@ -1400,18 +1413,35 @@ FLASH_MODEL_CASES = [
      2),
 ]
 # (c), flash attention in float32 at (m1)'s prefill layer shape: the serve
-# CLI's float32 parameters run the CUDA-core kernel at qwen3_4b's widths
-# over its 4 x 2048 prompt (the plain version on all four sequences)
+# CLI's float32 parameters run the 3xTF32 kernel at qwen3_4b's widths over
+# its 4 x 2048 prompt (the plain version on all four sequences); also timed
 FLASH_SERVE_CASE = ("qwen3_4b prefill layer, serve CLI", (4, 8, 4, 2048, 128),
                     2048, None, None, None)
+# (c), flash attention in float32 at the 3xTF32 kernel's other shapes: name,
+# q shape, Skv, window, prefix_len.  (j)'s float32 prefill layers:
+# qwen2_moe_a2_7b on 2 prompts (16 heads x 128, no GQA), hymba_1_5b's local
+# layers (G 5, hd 64, window 1024, so a CTA past key 1024 skips the tiles
+# below its window) and global ones on 8, paligemma_3b on 8 (one KV head, G
+# 16 with its padding, hd 256, 256 prefix positions); then q shorter than a
+# ragged Skv at hd 128 and 64, each with a window that skips tiles.  The
+# plain version runs on every sequence.  tools/flash_ab.py times these too.
+FLASH_F32_CASES = [
+    ("qwen2_moe_a2_7b prefill layer", (2, 16, 1, 2048, 128), 2048, None, 0),
+    ("hymba_1_5b local layer", (8, 5, 5, 2048, 64), 2048, 1024, 0),
+    ("hymba_1_5b global layer", (8, 5, 5, 2048, 64), 2048, None, 0),
+    ("paligemma_3b prefill layer", (8, 1, 16, 2048, 256), 2048, None, 256),
+    ("Sq < Skv, hd 128, window 300", (1, 8, 4, 200, 128), 777, 300, 0),
+    ("Sq < Skv, hd 64, window 100", (2, 5, 5, 100, 64), 1000, 100, 0),
+]
 
 
 # (c), flash attention with PaliGemma's bidirectional prefix: name, q shape,
 # Skv (= Sq), prefix_len, window, softcap, input scale, sequences held to the
 # plain version (None: all).  PaliGemma's layout (one KV head, G 16 with its
-# padding, hd 256): a tensor-core CTA covers 8 positions and a SIMT one 4,
-# so prefixes of 1, 7 and 100 end inside a CTA, and 100 reaches past the
-# first 64-key tile; windows of 16 and a softcap of 20 beside the prefix;
+# padding, hd 256): a tensor-core CTA (either dtype) covers 8 positions and
+# a SIMT one 4, so prefixes of 1, 7 and 100 end inside a CTA, and 100
+# reaches past the first 64-key tile (16-key for the 3xTF32 kernel);
+# windows of 16 and a softcap of 20 beside the prefix;
 # then PaliGemma's prefill layer (8 x 2048 positions, prefix 256)
 FLASH_PREFIX_CASES = [
     (f"prefix {P}, S {S}", (2, 1, 16, S, 256), S, P, None, None, 1.0, None)
@@ -1457,15 +1487,14 @@ def prefix_wrong_masks(torch, Sq, Skv, G, hd, kernel, prefix_len,
                        window=None, device=None) -> dict:
     """The masks of three wrong prefix kernels: the prefix dropped (the mask
     plain causal), the prefix keys past the causal tile range skipped (the
-    ``kernel``'s tile range left unwidened: 128 rows a CTA and 64-key tiles
-    at hd 256 (128 below) for ``tensor-core``, 64 rows and 64 keys for
-    ``simt``), and (with ``window``) the prefix's window term left out.
-    Those equal to the sound mask at this shape are left out: they are no
-    wrong kernel here."""
+    ``kernel``'s tile range left unwidened, at its ``flash_attention.tiles``),
+    and (with ``window``) the prefix's window term left out.  Those equal to
+    the sound mask at this shape are left out: they are no wrong kernel
+    here."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import tiles
     P, off = prefix_len, Skv - Sq
-    rows, bk = ((128, 64 if hd == 256 else 128) if kernel == "tensor-core"
-                else (64, 64))
+    rows, bk = tiles(kernel, hd)
     assert rows % G == 0, "a CTA must hold whole positions"
     mask = ref.flash_mask(Sq, Skv, window=window, prefix_len=P,
                           device=device)
@@ -1507,7 +1536,154 @@ def held_apart(torch, want, q, k, v, masks, softcap) -> dict:
     return out
 
 
-def phase_flash(torch, seed: int) -> None:
+def tf32_round_(torch, x):
+    """float32 ``x`` rounded in place to TF32 (to nearest, ties away from
+    zero, on the float32 bits, as the 3xTF32 kernel rounds); returns x."""
+    bits = x.view(torch.int32)
+    bits.add_(0x1000).bitwise_and_(-0x2000)
+    return x
+
+
+def flash_one_pass_tf32(torch, q, k, v, mask, softcap=None):
+    """A wrong float32 flash kernel: the plain version
+    (``ref.flash_attention_masked``) with q, k, v and p rounded to TF32 in
+    its products, as one TF32 pass on the tensor cores takes them (11
+    significant bits of each operand), the sums in float32."""
+    hd = q.shape[-1]
+    s = torch.einsum("bkgqd,bksd->bkgqs", tf32_round_(torch, q.clone()),
+                     tf32_round_(torch, k.clone()))
+    s.mul_(hd ** -0.5)
+    if softcap is not None:
+        s.div_(softcap).tanh_().mul_(softcap)
+    s.masked_fill_(~mask, -1e30)
+    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    s.div_(s.sum(dim=-1, keepdim=True))
+    return torch.einsum("bkgqs,bksd->bkgqd", tf32_round_(torch, s),
+                        tf32_round_(torch, v.clone()))
+
+
+def one_pass_margin(torch, want, q, k, v, window, softcap, prefix_len):
+    """|err| / limit of ``flash_one_pass_tf32`` against ``want``, the plain
+    version's float32 answer; raises unless it goes past the limit."""
+    from repro_torch.kernels import ref
+    mask = ref.flash_mask(q.shape[3], k.shape[2], window=window,
+                          prefix_len=prefix_len, device=q.device)
+    bad = flash_one_pass_tf32(torch, q, k, v, mask, softcap)
+    ratio, _ = err_ratio(torch, bad, want)
+    if not ratio > 1:
+        raise AssertionError(f"one TF32 pass is within the float32 limit: "
+                             f"|err| / limit {ratio}")
+    return ratio
+
+
+def flash_bound(q, k, prefix_len=0, window=None) -> tuple:
+    """(flops, bytes, bound ms, its term) of one causal flash call (the
+    wrapper's ``cost``): bfloat16 at the tensor cores' 989 TFLOP/s, float32
+    at 3xTF32's three TF32 products a flop at 494.7 TFLOP/s; the larger of
+    that and the bytes at 3.35 TB/s."""
+    from repro_torch.kernels import flash_attention as flash
+    flops, bytes_ = flash.cost(q, k, window=window, prefix_len=prefix_len)
+    peak = PEAK_BF16 if q.element_size() == 2 else PEAK_F32_FLASH
+    by_ops, by_bytes = flops / peak * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    return (flops, bytes_, max(by_ops, by_bytes),
+            "operations" if by_ops > by_bytes else "bytes")
+
+
+def sdpa_f32(torch, q, k, v, **kw) -> list:
+    """``scaled_dot_product_attention`` on float32 q (B, H, Sq, hd) over k/v
+    (B, KV, Skv, hd) with TF32 off, two ways: with ``enable_gqa``, and,
+    with GQA (KV < H), on k and v expanded to all H heads before the call.
+    Each runs the memory-efficient backend, or the math one where that
+    refuses the call (as it refuses ``enable_gqa`` in float32).  Returns
+    [(how, a function making the call)]."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call(backend, k, v, gqa):
+        def run():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=gqa, **kw)
+        return run
+
+    def way(how, k, v, gqa):
+        try:
+            call(SDPBackend.EFFICIENT_ATTENTION, k, v, gqa)()
+            return (f"memory-efficient backend, {how}",
+                    call(SDPBackend.EFFICIENT_ATTENTION, k, v, gqa))
+        except RuntimeError:
+            return f"math backend, {how}", call(SDPBackend.MATH, k, v, gqa)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ways = [way("enable_gqa", k, v, True)]
+    G = q.shape[1] // k.shape[1]
+    if G > 1:
+        ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+        ways.append(way("k and v expanded to every query head beforehand",
+                        ke, ve, False))
+    return ways
+
+
+def time_sdpa_f32(torch, timer, q, k, v, want, reps: int = 10,
+                  **kw) -> tuple:
+    """Each of ``sdpa_f32``'s calls timed (CUDA events, mean of ``reps``
+    after 3 warm-up calls) and held to ``want`` (the plain version's (B, KV,
+    G, Sq, hd) answer).  Returns (the fastest call's ms, a log text naming
+    every call's ms, its |err| / limit and which one is the fastest)."""
+    B, KV, G, Sq, hd = want.shape
+    runs = []
+    for how, fn in sdpa_f32(torch, q, k, v, **kw):
+        ms, lib = timer(fn, reps=reps, warmup=3)
+        ratio, _ = err_ratio(torch, lib.reshape(B, KV, G, Sq, hd), want)
+        del lib
+        runs.append((ms, how, ratio))
+    best = min(runs)
+    return best[0], "scaled_dot_product_attention (float32, TF32 off): " + \
+        "; ".join(f"{how} {ms:.4f} ms (/ limit {r:.3g})"
+                  for ms, how, r in runs) + f"; the fastest: {best[1]}"
+
+
+def measure_flash_f32(torch, seed: int, timer) -> tuple:
+    """(c), the float32 flash kernel at ``FLASH_SERVE_CASE`` ((m1)'s prefill
+    layer: qwen3_4b's widths, 4 x 2048 tokens), causal, on seeded operands
+    in the model layout as ``ops.mha_forward`` passes them: its time (CUDA
+    events, mean of 10 calls after 3 warm-up calls), the plain version's,
+    ``scaled_dot_product_attention``'s in float32 (``time_sdpa_f32``: both
+    ways are logged, the faster is the row's library time), the largest
+    difference from the plain version, and the bound (``flash_bound``, with
+    the CUDA cores' 67 TFLOP/s term beside it).  Returns the kernels line's
+    row but its launches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import kernel_path
+    name, (B, KV, G, S, hd), skv, _, _, _ = FLASH_SERVE_CASE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 201)
+    qm, km, vm = (torch.randn((B, S, n, hd), generator=gen, device=dev)
+                  for n in (KV * G, KV, KV))
+    ms, got = timer(lambda: ops.mha_forward(qm, km, vm), reps=10, warmup=3)
+    q = qm.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+    k, v = km.transpose(1, 2), vm.transpose(1, 2)
+    plain_ms, want = timer(lambda: ref.flash_attention_ref(q, k, v), reps=1,
+                           warmup=1)
+    got = got.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+    ratio, err = close(torch, got, want)
+    del got
+    lib_ms, lib_text = time_sdpa_f32(torch, timer, qm.transpose(1, 2), k, v,
+                                     want, is_causal=True)
+    flops, bytes_, bound, by = flash_bound(q, k)
+    log(f"(c) flash kernel ({kernel_path(q.dtype, hd)}) timed at {name} (q "
+        f"{tuple(qm.shape)}, k/v {tuple(km.shape)}, float32): {ms:.4f} ms a "
+        f"call (CUDA events, mean of 10 after 3 warm-up calls); plain "
+        f"{plain_ms:.4f} ms; {lib_text} (the row's library_ms); bound "
+        f"{bound:.4f} ms ({by}: {flops} flops as 3 TF32 products each at "
+        f"494.7 TFLOP/s, {bytes_} B at 3.35 TB/s; on the CUDA cores' 67 "
+        f"TFLOP/s {flops / PEAK_F32 * 1e3:.4f} ms); kernel |err| vs plain "
+        f"{err:.3g} (/ limit {ratio:.3g}); {flops / ms / 1e9:.1f} TFLOP/s "
+        f"achieved, {100 * bound / ms:.1f}% of the bound")
+    return ("flash_attention_f32", "src/repro/kernels/flash_attention.py:122",
+            ms, plain_ms, bytes_, err, lib_ms, flops)
+
+
+def phase_flash(torch, seed: int, timer) -> tuple:
     """(c), the flash kernel against its plain version: float32 and bfloat16
     at ``FLASH_CASES`` (contiguous operands, and the model layout through
     ``ops.mha_forward``: strided views in, (B, S, H, hd) out), then bfloat16
@@ -1519,9 +1695,14 @@ def phase_flash(torch, seed: int) -> None:
     1000 tokens); float32 at ``FLASH_SERVE_CASE`` ((m1)'s prefill layer,
     4 x 2048 tokens at qwen3_4b's widths); then float32 and bfloat16 at ``FLASH_PREFIX_CASES``
     (PaliGemma's bidirectional prefix) and bfloat16 at PaliGemma's prefill
-    layer; each line names the kernel that ran (``tensor-core`` or
-    ``simt``); at each shape the wrong kernels' plain versions go past the
-    limit (with a prefix, also those of ``prefix_wrong_masks``)."""
+    layer; float32 at ``FLASH_F32_CASES`` ((j)'s float32 prefill layers,
+    and q shorter than the keys at hd 64 and 128 with windows that skip
+    tiles); each line names the kernel that ran (``tensor-core``,
+    ``3xtf32`` or ``simt``); at each shape the wrong kernels' plain
+    versions go past the limit (with a prefix, also those of
+    ``prefix_wrong_masks``; in float32, also one TF32 pass,
+    ``flash_one_pass_tf32``).  Then the float32 kernel timed at
+    ``FLASH_SERVE_CASE`` (``measure_flash_f32``, whose row it returns)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention, kernel_path
     dev = torch.device("cuda")
@@ -1565,6 +1746,10 @@ def phase_flash(torch, seed: int) -> None:
             margins.update(held_apart(torch, want, q[:n], k[:n], v[:n],
                                       masks, softcap))
             prefix = f", prefix {prefix_len}"
+        if dtype == torch.float32:
+            margins["one-pass TF32"] = one_pass_margin(
+                torch, want, q[:n], k[:n], v[:n], window, softcap,
+                prefix_len)
         ratio, err = map(max, zip(*checks))
         log(f"(c) flash kernel ({kernel_path(dtype, hd)}) == plain "
             f"({str(dtype)[6:]}, {name}: q "
@@ -1584,6 +1769,9 @@ def phase_flash(torch, seed: int) -> None:
     name, shape, skv, window, softcap, n_plain = FLASH_SERVE_CASE
     check(name, shape, skv, window, softcap, torch.float32, 1.0,
           n_plain=n_plain)
+    for name, shape, skv, window, P in FLASH_F32_CASES:
+        check(name, shape, skv, window, None, torch.float32, 1.0,
+              prefix_len=P)
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, skv, P, window, softcap, scale, n_plain in \
                 FLASH_PREFIX_CASES:
@@ -1594,6 +1782,7 @@ def phase_flash(torch, seed: int) -> None:
     check(name, shape, skv, window, softcap, torch.bfloat16, scale, n_plain,
           prefix_len=P)
     torch.cuda.synchronize()
+    return measure_flash_f32(torch, seed, timer)
 
 
 def lookup_bytes(keys, directory, table_keys, table_vals, depth) -> int:
@@ -1750,12 +1939,14 @@ def err(a, b) -> int:
 
 
 def _row(name, source, replaces, launches, ms, plain_ms, bytes_,
-         max_err, library_ms=None, phase="e", flops=0) -> dict:
+         max_err, library_ms=None, phase="e", flops=0,
+         peak=PEAK_BF16) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; the bound is the larger
     of the bytes the function must move over the card's memory rate and its
-    ``flops`` over the bfloat16 tensor-core peak."""
+    ``flops`` over ``peak`` (the bfloat16 tensor cores'; a float32 flash
+    kernel's ``PEAK_F32_FLASH``)."""
     by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_BF16 * 1e3
+    by_ops = flops / peak * 1e3
     bound = max(by_bytes, by_ops)
     bound_by = "operations" if by_ops > by_bytes else "bytes"
     log(f"({phase}) {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -2700,7 +2891,6 @@ def measure_flash(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> tuple:
     largest difference from plain, and its bound; with padded heads, also
     the kernel's time on the live heads alone."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import kernel_path
     from repro_torch.models import attention as attn
@@ -2730,8 +2920,7 @@ def measure_flash(torch, mres, timer, phase="h", c=MODEL_CONFIG) -> tuple:
     lib_ratio, lib_err = err_ratio(torch, lib, want)
     # the wrapper's own reckoning: 4 hd flops a query head for each visible
     # (query, key) pair; q, k, v read and the output written
-    flops, bytes_ = flash.cost(q, km.transpose(1, 2), prefix_len=P)
-    bound = max(flops / PEAK_BF16, bytes_ / HBM_BYTES_PER_S) * 1e3
+    flops, bytes_, bound, _ = flash_bound(q, km.transpose(1, 2), P)
     padded = ""
     if Gp != G:
         live = qm.reshape(B, S, KV, Gp, hd)[:, :, :, :G].reshape(
@@ -4767,17 +4956,18 @@ def run_main(fn, argv) -> tuple:
     return rc, buf.getvalue().strip().splitlines()
 
 
-def launch_serve(torch, smi) -> None:
+def launch_serve(torch, smi) -> int:
     """(m1): ``launch.serve.main`` in-process on both routes: its four
     lines, the flash kernel launched once a layer in the prefill and the
     route's decode kernels in every step, the routes' sample tokens
-    equal."""
+    equal.  Returns the flash launches counted over both routes (the
+    float32 kernel's)."""
     from repro_torch.configs import get
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     L = get("qwen3_4b").num_layers
     steps = int(LAUNCH_SERVE[LAUNCH_SERVE.index("--gen") + 1]) - 1
-    tokens = {}
+    tokens, flash_n = {}, 0
     for path in ("shortcut", "paged"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -4791,8 +4981,10 @@ def launch_serve(torch, smi) -> None:
         want = {"flash_attention": L,
                 f"{path}_attention": 2 * L * steps}
         assert got == want, f"(m1) {path}: launches {got}, want {want}"
+        flash_n += got["flash_attention"]
         tokens[path] = lines[3].split(":", 1)[1].strip()
     assert tokens["shortcut"] == tokens["paged"], f"(m1) tokens {tokens}"
+    return flash_n
 
 
 def launch_dryrun(torch) -> None:
@@ -4969,11 +5161,11 @@ def launch_counts(torch, args, smi, h_busy, l1_peak) -> None:
         f"{t.bytes:.6g} B; (l1) measured a peak of {l1_peak} B ({smi})")
 
 
-def phase_launch(torch, args, smi, h_busy, l1_peak) -> None:
+def phase_launch(torch, args, smi, h_busy, l1_peak) -> int:
     """(m): the serve CLI, the dry run, and the cost counter held to the
-    card."""
+    card.  Returns (m1)'s flash launches."""
     t0 = time.perf_counter()
-    launch_serve(torch, smi)
+    flash_n = launch_serve(torch, smi)
     log(f"(m1) seconds {time.perf_counter() - t0:.1f}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4983,6 +5175,7 @@ def phase_launch(torch, args, smi, h_busy, l1_peak) -> None:
     t0 = time.perf_counter()
     launch_counts(torch, args, smi, h_busy, l1_peak)
     log(f"(m3) seconds {time.perf_counter() - t0:.1f}")
+    return flash_n
 
 
 def main() -> int:
@@ -5016,7 +5209,7 @@ def main() -> int:
     clock.lap("b")
     phase_kernels(torch, np, args.seed, wrong_lookups)
     phase_attention(torch, np, args.seed)
-    phase_flash(torch, args.seed)
+    f32_flash = phase_flash(torch, args.seed, timer)
     clock.lap("c")
     res = phase_main(torch, np, args, timer)
     clock.lap("d")
@@ -5095,7 +5288,12 @@ def main() -> int:
     l1_peak = phase_train(torch, args, smi)
     clock.lap("l")
 
-    phase_launch(torch, args, smi, h_busy, l1_peak)
+    m1_flash = phase_launch(torch, args, smi, h_busy, l1_peak)
+    name, replaces, ms, plain_ms, bytes_, err, lib_ms, flops = f32_flash
+    kernels.append(_row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        replaces, {name: m1_flash}, ms, plain_ms, bytes_, err,
+                        library_ms=lib_ms, phase="m1", flops=flops,
+                        peak=PEAK_F32_FLASH))
     clock.lap("m")
     log(f"(e) total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -27,9 +27,12 @@
 // Bound: operations.  A prefill layer call does 4*hd flops per visible
 // (query row, key) pair on a few MB of operands: at qwen3_4b's 8 x 2048
 // tokens about 2.7e11 flops against 0.3 GB, hundreds of flops per byte, so
-// the bound is the bf16 tensor cores' 989 TFLOP/s (0.278 ms there).
+// the bound is the bf16 tensor cores' 989 TFLOP/s (0.278 ms there).  In
+// float32 it is 3xTF32's three TF32 products a product at 494.7 TFLOP/s
+// (0.834 ms at the serve CLI's 4 x 2048 tokens; the CUDA cores' 67 TFLOP/s
+// would give 2.052 ms).
 //
-// Two kernels, picked by dtype and head_dim in flash_attention_launch (no
+// Three kernels, picked by dtype and head_dim in flash_attention_launch (no
 // switch, no fallback):
 //
 // flash_tc_kernel<HD>: bfloat16 at hd 64, 128 and 256 (every head_dim of the
@@ -60,15 +63,60 @@
 // caller's buffer.  CTAs are ordered heaviest row tile first across all
 // (b, kv head) pairs.
 //
-// flash_kernel<T, HD>: float32 at every head_dim, and bfloat16 at hd 16 and
-// 32 (which only the checks use; the swizzled 128-byte rows of the
-// tensor-core kernel need hd >= 64), f32 FMAs on the CUDA cores.  TF32
-// tensor cores could not hold float32's 2e-5 limit.  One CTA of 256 threads
-// per (b, kv head, 64 query rows), Q (pre-scaled), a K and V tile of 64
-// keys and the tile's p in shared memory as f32; thread (ty, tx) of a 16 x
-// 16 grid owns rows 4ty..4ty+3 and keys tx + 16j, row max and sum reduce
-// over the 16 tx lanes by shuffles.  Operands are read element by element
-// through strides, ragged tails bounds-checked.
+// flash_tf32x3_kernel<HD>: float32 at hd 64, 128 and 256, on the tensor
+// cores in 3xTF32.  One TF32 product keeps 11 significant bits of each
+// operand (a relative error near 2^-11), which float32's 2e-5 limit does not
+// allow; the error-compensated form (CUTLASS's OpMultiplyAddFastF32) does.
+// Each operand x is split into big = tf32(x) and small = tf32(x - big)
+// (x - big is exact in f32), both rounded to nearest with ties away from
+// zero on the f32 bits ((bits + 0x1000) & ~0x1FFF, which is what
+// cvt.rna.tf32.f32 computes), and a product is small*big + big*small +
+// big*big accumulated in f32: about 22 bits of each product survive, and
+// the dropped small*small term is under 2^-22 of it.  Both S = Q K^T and
+// O += P V run so, p (in [0, 1]) split like the others; l sums the f32 p.
+// The instruction is mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, three for
+// each 16 x 8 x 8 step.  The tensor cores add inside a chain of mma's with
+// truncation: with O accumulated across all keys (3 x 256 products at 2048
+// keys) the kernel sat at 0.3 of the limit and went past it on large
+// softcapped scores.  So every chain is two k-steps (six mma's) from zero,
+// and its sum goes into the f32 total by an add that rounds to nearest.
+// A CTA takes 128 rows of the flattened (position, query head) axis (GQA
+// folded in, as above) and has 8 warps, each owning 16 rows; K and V tiles
+// of BK = 4096 / hd keys arrive by 16-byte cp.async (zero fill past Skv)
+// into a ring of NS stages, and the copies of tile i + NS - 1 run while
+// tile i is computed.  Q is copied once a CTA, and every tile is kept
+// unsplit in shared memory, rows padded by 4 floats so that each fragment
+// load hits 32 banks; Q's and K's fragments come by ldmatrix (four 8 x 4
+// f32 matrices a call), V's by 32-bit loads, and the threads split what
+// they load, in registers (no tensor holds the small parts; splitting K and
+// V once a CTA into shared memory was timed and did not pay for its
+// shared memory).  Geometry (254 registers a thread, no spills):
+//   hd 64:  BK 64, NS 3, 139264 B of shared memory;
+//   hd 128: BK 32, NS 2, 135168 B;
+//   hd 256: BK 16, NS 2, 199680 B.
+// S's accumulators become P V's A fragments with no shuffle: m16n8k8's C
+// fragment gives thread (g = lane / 4, t = lane % 4) the keys 2t and 2t + 1
+// of an 8-key block in rows g and g + 8, where the A fragment wants columns
+// t and t + 4.  So P V's reduction column t stands for key 2t and column
+// t + 4 for key 2t + 1: A = {c0, c2, c1, c3}, and the B fragment reads V's
+// rows 2t and 2t + 1 (the sum over keys does not depend on their order).
+// Masks (masks only on edge tiles), the base-2 online softmax (scores times
+// hd^-0.5 log2 e, ex2.approx.ftz: its relative error, about 2^-22, stays far
+// under the 2e-5 limit) and the heaviest-first CTA order are the bf16
+// kernel's, one copy of each for both (tc::row_bounds, tc::edge_tile,
+// tc::online_softmax; cta_span, which the SIMT kernel takes too).  What bounds it: mma.sync in TF32 peaks at about 320 TFLOP/s
+// on an H100 (tools/mma_tf32_peak.py), 65% of the data sheet's rate, which
+// only wgmma reaches; so the instruction's own ceiling for 3xTF32 is about
+// 107 TFLOP/s of float32 work.
+//
+// flash_kernel<T, HD>: bfloat16 and float32 at hd 16 and 32 (which only the
+// checks use; the tensor-core kernels' tiles need hd >= 64), f32 FMAs on
+// the CUDA cores.  One CTA of 256 threads per (b, kv head, 64 query rows),
+// Q (pre-scaled), a K and V tile of 64 keys and the tile's p in shared
+// memory as f32; thread (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 and
+// keys tx + 16j, row max and sum reduce over the 16 tx lanes by shuffles.
+// Operands are read element by element through strides, ragged tails
+// bounds-checked.
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
@@ -79,8 +127,40 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
+// What a CTA of ROWS rows of the flattened (position, query head) axis
+// visits, for all three kernels.  The grid's row tiles are ordered
+// heaviest first: the CTA with index idx of n takes rows r0 = (n - 1 - idx)
+// ROWS on, at positions q_lo .. q_hi (q right-aligned, q_offset = Skv -
+// Sq).  Its key tiles of BK keys are [t_lo, t_hi): none wholly above its
+// last row's diagonal, none wholly below its first row's window; with a
+// prefix, every tile from key 0 on, up to the prefix's last tile where a
+// row sits below P.
+struct Span {
+  int r0, q_lo, q_hi, t_lo, t_hi;
+};
+
+template <int ROWS, int BK>
+__device__ __forceinline__ Span cta_span(int n, int idx, int G, int Sq,
+                                         int Skv, int causal, int window,
+                                         int prefix) {
+  Span c;
+  c.r0 = (n - 1 - idx) * ROWS;
+  const int q_offset = Skv - Sq, last = min(c.r0 + ROWS, Sq * G) - 1;
+  c.q_lo = c.r0 / G + q_offset;
+  c.q_hi = last / G + q_offset;
+  const int ntiles = (Skv + BK - 1) / BK;
+  c.t_hi = causal ? min(ntiles, c.q_hi / BK + 1) : ntiles;
+  c.t_lo = window > 0 ? max(0, c.q_lo - window + 1) / BK : 0;
+  if (prefix > 0) {  // the prefix keys, visible to every row
+    c.t_lo = 0;
+    if (c.q_lo < prefix)
+      c.t_hi = max(c.t_hi, min(ntiles, (prefix + BK - 1) / BK));
+  }
+  return c;
+}
+
 // ---------------------------------------------------------------------------
-// The SIMT kernel (float32; bfloat16 at hd 16 and 32).
+// The SIMT kernel (float32 and bfloat16 at hd 16 and 32).
 
 constexpr int kRows = 64;      // query rows per CTA
 constexpr int kKeys = 64;      // keys per K/V tile
@@ -137,8 +217,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   float* Ps = Vs + kKeys * HD;                  // kRows x PS
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const Span cta = cta_span<kRows, kKeys>(gridDim.x, blockIdx.x, G, Sq,
+                                          Skv, causal, window, prefix);
+  const int r0 = cta.r0, h = blockIdx.y, b = blockIdx.z;
   const int nrows = Sq * G, q_offset = Skv - Sq;
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
@@ -155,16 +236,6 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   int qpos[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) qpos[i] = (r0 + 4 * ty + i) / G + q_offset;
-  const int last = min(r0 + kRows, nrows) - 1;
-  const int q_lo = r0 / G + q_offset, q_hi = last / G + q_offset;
-  const int ntiles = (Skv + kKeys - 1) / kKeys;
-  int t_hi = causal ? min(ntiles, q_hi / kKeys + 1) : ntiles;
-  int t_lo = window > 0 ? max(0, q_lo - window + 1) / kKeys : 0;
-  if (prefix > 0) {  // the prefix keys, visible to every row
-    t_lo = 0;
-    if (q_lo < prefix)
-      t_hi = max(t_hi, min(ntiles, (prefix + kKeys - 1) / kKeys));
-  }
 
   float m[4], l[4], acc[4][NV][VW];
 #pragma unroll
@@ -177,7 +248,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       for (int e = 0; e < VW; ++e) acc[i][c][e] = 0.f;
   }
 
-  for (int t = t_lo; t < t_hi; ++t) {
+  for (int t = cta.t_lo; t < cta.t_hi; ++t) {
     const int k0 = t * kKeys;
     __syncthreads();  // Qs written; the last tile's Ks, Vs, Ps read
     for (int i = tid; i < kKeys * HD; i += kThreads) {
@@ -429,6 +500,31 @@ struct Tile {
   int prefix;
 };
 
+// A Tile's bounds hi and lo for the row at position qpos.
+__device__ __forceinline__ void row_bounds(int qpos, int Skv, int causal,
+                                           int window, int prefix, int& hi,
+                                           int& lo) {
+  hi = causal ? min(max(qpos, prefix - 1), Skv - 1) : Skv - 1;
+  lo = window > 0 ? qpos - window : -1;
+}
+
+// Whether the key tile [k0, k0 + bk) needs its masks for a CTA whose rows
+// sit at positions q_lo .. q_hi.  It does not when none can fire for any
+// of those rows: every key inside Skv, every key at or below the lowest
+// row's position (or every key and every row inside the prefix), and every
+// key above the highest row's window edge (or every key inside the
+// prefix).  So a tile crossing the diagonal, the window edge, Skv or the
+// prefix's end is masked, and so is a prefix tile past the diagonal of a
+// CTA that reaches past the prefix.
+__device__ __forceinline__ bool edge_tile(int k0, int bk, int Skv, int causal,
+                                          int window, int prefix, int q_lo,
+                                          int q_hi) {
+  const bool keys_in_prefix = k0 + bk <= prefix;
+  return k0 + bk > Skv ||
+         (causal && k0 + bk - 1 > q_lo && !(keys_in_prefix && q_hi < prefix)) ||
+         (window > 0 && k0 <= q_hi - window && !keys_in_prefix);
+}
+
 // S (a thread's accumulator fragment, rows 0 and 1 of the Tile, columns
 // k0 + 8 n + {0, 1}) to base-2 scores in place: s * mul (= hd^-0.5 log2 e),
 // or with CAP cap tanh(s * mul) * cap2 (mul = hd^-0.5 / cap, cap2 = cap
@@ -454,6 +550,47 @@ __device__ __forceinline__ void scores(float (&s)[NV], float (&mt)[2],
       s[4 * n + e] = x;
       mt[e >> 1] = fmaxf(mt[e >> 1], x);
     }
+}
+
+// One key tile of the online softmax, in base 2, for a thread's two rows:
+// S (its accumulator fragment, as scores() takes it) scaled by hd^-0.5,
+// softcapped and, on an edge tile, masked; then m (the running row maxima,
+// base 2), corr (exp2 of the old maxima minus the new), l (the running sums
+// of the f32 p, over the thread's own columns) updated, and s holding the
+// f32 p.  The row maxima reduce over the 4 threads of a row (lanes 4 g ..
+// 4 g + 3).
+template <int NV>
+__device__ __forceinline__ void online_softmax(float (&s)[NV], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               bool edge, const Tile& tile,
+                                               float softcap, float scale) {
+  float mt[2] = {m[0], m[1]};
+  if (softcap > 0.f) {
+    const float mul = scale / softcap;
+    if (edge) scores<true, true>(s, mt, mul, softcap * kLog2e, tile);
+    else scores<true, false>(s, mt, mul, softcap * kLog2e, tile);
+  } else {
+    if (edge) scores<false, true>(s, mt, scale * kLog2e, 0.f, tile);
+    else scores<false, false>(s, mt, scale * kLog2e, 0.f, tile);
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xFFFFFFFFu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xFFFFFFFFu, mt[r], 2));
+    corr[r] = ex2(m[r] - mt[r]);
+    m[r] = mt[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NV / 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = ex2(s[4 * n + e] - m[e >> 1]);
+      ps[e >> 1] += pe;
+      s[4 * n + e] = pe;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -578,17 +715,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x % KV, b = blockIdx.x / KV;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const Span cta = cta_span<kRows, BK>(gridDim.y, blockIdx.y, G, Sq, Skv,
+                                       causal, window, prefix);
+  const int r0 = cta.r0, t_lo = cta.t_lo, t_hi = cta.t_hi;
   const int nrows = Sq * G, q_offset = Skv - Sq;
-  const int last = min(r0 + kRows, nrows) - 1;
-  const int q_lo = r0 / G + q_offset, q_hi = last / G + q_offset;
-  const int ntiles = (Skv + BK - 1) / BK;
-  int t_hi = causal ? min(ntiles, q_hi / BK + 1) : ntiles;
-  int t_lo = window > 0 ? max(0, q_lo - window + 1) / BK : 0;
-  if (prefix > 0) {  // the prefix keys, visible to every row
-    t_lo = 0;
-    if (q_lo < prefix) t_hi = max(t_hi, min(ntiles, (prefix + BK - 1) / BK));
-  }
 
   if (tid == 0) {
 #pragma unroll
@@ -650,14 +780,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
   const int lr = 64 * wg + 16 * (wtid / 32) + lane / 4;
   int hi[2], lo[2];  // the two rows' mask bounds (Tile)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = (r0 + lr + 8 * r) / G + q_offset;
-    hi[r] = causal ? min(max(qpos, prefix - 1), Skv - 1) : Skv - 1;
-    lo[r] = window > 0 ? qpos - window : -1;
-  }
+  for (int r = 0; r < 2; ++r)
+    row_bounds((r0 + lr + 8 * r) / G + q_offset, Skv, causal, window, prefix,
+               hi[r], lo[r]);
   const int col0 = 2 * (lane % 4);
   const uint64_t q_desc = smem_desc(base + wg * 64 * 128, 16, 1024);
-  const float sl2 = scale * kLog2e;
 
   float o[HD / 2], s[BK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   uint32_t p[BK / 4];
@@ -690,50 +817,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
                      p[4 * kk + 3], v_desc + kk * (2048 >> 4));
     wgmma_commit();
   };
-  // tile i's scale, softcap and masks, then the online softmax in base 2:
-  // m, l and corr updated, s holding the f32 p.  A tile skips the masks
-  // when none can fire for any of the CTA's rows: every key inside Skv,
-  // every key at or below the lowest row's position (or every key and every
-  // row inside the prefix), and every key above the highest row's window
-  // edge (or every key inside the prefix).  So a tile crossing the
-  // diagonal, the window edge, Skv or the prefix's end is masked, and so is
-  // a prefix tile past the diagonal of a CTA that reaches past the prefix.
+  // tile i's scale, softcap and masks (on edge tiles only), then the
+  // online softmax in base 2: m, l and corr updated, s holding the f32 p
   float corr[2];
   auto softmax = [&](int i) {
     const int k0 = (t_lo + i) * BK;
-    const bool keys_in_prefix = k0 + BK <= prefix;
-    const bool edge =
-        k0 + BK > Skv ||
-        (causal && k0 + BK - 1 > q_lo && !(keys_in_prefix && q_hi < prefix)) ||
-        (window > 0 && k0 <= q_hi - window && !keys_in_prefix);
-    float mt[2] = {m[0], m[1]};
-    const Tile tile{k0 + col0, hi[0], hi[1], lo[0], lo[1], prefix};
-    if (softcap > 0.f) {
-      const float mul = scale / softcap;
-      if (edge) scores<true, true>(s, mt, mul, softcap * kLog2e, tile);
-      else scores<true, false>(s, mt, mul, softcap * kLog2e, tile);
-    } else {
-      if (edge) scores<false, true>(s, mt, sl2, 0.f, tile);
-      else scores<false, false>(s, mt, sl2, 0.f, tile);
-    }
-    float ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xFFFFFFFFu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xFFFFFFFFu, mt[r], 2));
-      corr[r] = ex2(m[r] - mt[r]);
-      m[r] = mt[r];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = ex2(s[4 * n + e] - m[e >> 1]);
-        ps[e >> 1] += pe;
-        s[4 * n + e] = pe;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
+    online_softmax(s, m, l, corr,
+                   edge_tile(k0, BK, Skv, causal, window, prefix, cta.q_lo,
+                             cta.q_hi),
+                   Tile{k0 + col0, hi[0], hi[1], lo[0], lo[1], prefix},
+                   softcap, scale);
   };
   // O rescaled to the new row maxima (once no P V writes it), and the f32
   // p converted in place: registers 8 kk .. 8 kk + 7 of S are the A
@@ -892,6 +985,311 @@ int launch(const void* q, const long long* qs, const void* k,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The float32 tensor-core kernel (3xTF32, hd 64/128/256).
+
+namespace tf32x3 {
+
+template <int HD>
+struct Cfg {
+  static constexpr int ROWS = 128;          // query rows per CTA
+  static constexpr int THREADS = 256;       // 8 warps of 16 rows
+  static constexpr int BK = 4096 / HD;      // keys per K/V tile
+  static constexpr int NS = HD == 64 ? 3 : 2;  // stages of the ring
+  static constexpr int LD = HD + 4;         // floats a row in smem
+  static constexpr int TILE = BK * LD;      // floats of a K or V tile
+  static constexpr int SMEM = 4 * (ROWS * LD + 2 * NS * TILE);
+};
+
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32.f32)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small + (under 2^-22 |x|), both TF32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// d (+)= a b, one mma.sync.m16n8k8 in TF32 (a: 16 x 8 row-major fragment,
+// b: 8 x 8 column-major, d: 16 x 8 f32); ZERO: d = a b
+template <bool ZERO = false>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if constexpr (ZERO)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+  else
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A operand fragments of two k-steps, split
+struct AFrag {
+  uint32_t big[2][4], small[2][4];
+};
+
+// total += a b over two k-steps in 3xTF32, b the B fragments of the two
+// steps ({b0, b1} each, unsplit).  The products run as one short chain
+// from zero, the cross terms first, and the chain's sum goes into total
+// with an f32 add: the tensor cores add inside a chain with truncation
+// (toward zero), so a chain as long as a row of keys (3 x 256 products at
+// 2048 keys) would drift by about its length times 2^-24 of the sum, where
+// the f32 adds round to nearest.
+__device__ __forceinline__ void mma3x2(float* total, const AFrag& a,
+                                       const float (&b)[2][2]) {
+  uint32_t bb[2][2], bs[2][2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) split(b[u][j], bb[u][j], bs[u][j]);
+  float t[4];
+  mma<true>(t, a.small[0], bb[0][0], bb[0][1]);
+  mma(t, a.big[0], bs[0][0], bs[0][1]);
+  mma(t, a.small[1], bb[1][0], bb[1][1]);
+  mma(t, a.big[1], bs[1][0], bs[1][1]);
+  mma(t, a.big[0], bb[0][0], bb[0][1]);
+  mma(t, a.big[1], bb[1][0], bb[1][1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) total[e] += t[e];
+}
+
+// four 8 x 4 f32 matrices of shared memory, one register of each a lane:
+// lane l gives the address of row l % 8 of matrix l / 8 and receives row
+// (l % 32) / 4, word l % 4 of each (ldmatrix's b16 pairs are f32 words)
+__device__ __forceinline__ void ldsm4(float (&r)[4], uint32_t addr) {
+  uint32_t x[4];
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3]) : "r"(addr));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = __uint_as_float(x[j]);
+}
+
+// 16 bytes from global to shared memory; zeros where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// grid (B * KV, row tiles), as flash_tc_kernel's.  q: (B, KV, G, Sq, hd)
+// with element strides q_s*; k, v: (B, KV, Skv, hd) with strides k_s*,
+// v_s*; out: like q, strides o_s*.  Every operand is read in 16-byte units.
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, 1) flash_tf32x3_kernel(
+    const float* __restrict__ q, long long q_sb, long long q_sh,
+    long long q_sg, long long q_ss, const float* __restrict__ k,
+    long long k_sb, long long k_sh, long long k_ss,
+    const float* __restrict__ v, long long v_sb, long long v_sh,
+    long long v_ss, float* __restrict__ out, long long o_sb, long long o_sh,
+    long long o_sg, long long o_ss, int KV, int G, int Sq, int Skv,
+    int causal, int window, int prefix, float softcap, float scale) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK, NS = C::NS, LD = C::LD, ROWS = C::ROWS;
+  constexpr int CH = HD / 4;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) float smem[];
+  // shared memory: Q (ROWS x LD), then NS stages of a K and a V tile
+  float* const qs = smem;
+  float* const kvs = smem + ROWS * LD;
+  const uint32_t s_q = tc::smem_addr(qs), s_kv = tc::smem_addr(kvs);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int h = blockIdx.x % KV, b = blockIdx.x / KV;
+  const Span cta = cta_span<ROWS, BK>(gridDim.y, blockIdx.y, G, Sq, Skv,
+                                      causal, window, prefix);
+  const int r0 = cta.r0, t_lo = cta.t_lo, n_t = cta.t_hi - cta.t_lo;
+  const int nrows = Sq * G, q_offset = Skv - Sq;
+
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  for (int i = tid; i < ROWS * CH; i += C::THREADS) {
+    const int r = i / CH, c = i % CH, row = r0 + r;
+    const bool ok = row < nrows;
+    cp_async16(s_q + 4 * (r * LD + 4 * c),
+               ok ? qb + (row % G) * q_sg + (row / G) * q_ss + 4 * c : qb,
+               ok);
+  }
+  // tile t's K and V into stage st
+  auto load_tile = [&](int t, int st) {
+    const uint32_t kt = s_kv + 4 * (2 * st * C::TILE), vt = kt + 4 * C::TILE;
+    for (int i = tid; i < BK * CH; i += C::THREADS) {
+      const int j = i / CH, c = i % CH, kp = t * BK + j;
+      const bool ok = kp < Skv;
+      cp_async16(kt + 4 * (j * LD + 4 * c), ok ? kb + kp * k_ss + 4 * c : kb,
+                 ok);
+      cp_async16(vt + 4 * (j * LD + 4 * c), ok ? vb + kp * v_ss + 4 * c : vb,
+                 ok);
+    }
+  };
+  // Q joins the first stage's group; a group is committed for every stage,
+  // empty or not, so that wait_group counts stages
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n_t) load_tile(t_lo + st, st);
+    cp_async_commit();
+  }
+
+  // this thread's rows of the warp's 16 (the C fragment of m16n8k8: rows g
+  // and g + 8, columns 8 n + 2 t + {0, 1} in registers 4 n + {0, 1} and
+  // 4 n + {2, 3}, the wgmma accumulator's layout, so tc::online_softmax
+  // takes it as it is)
+  const int lr = 16 * warp + g;
+  int hi[2], lo[2];  // the two rows' mask bounds (tc::Tile)
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    tc::row_bounds((r0 + lr + 8 * r) / G + q_offset, Skv, causal, window,
+                   prefix, hi[r], lo[r]);
+  // ldmatrix addresses (bytes): Q's A fragment at hd column d0 (matrix j:
+  // rows 8 (j % 2), columns d0 + 4 (j / 2), of the warp's 16 rows) and K's
+  // B fragments of key blocks n and n + 1 (matrix j: keys 8 (n + j / 2),
+  // columns d0 + 4 (j % 2))
+  const int mj = lane / 8, mr = lane % 8;
+  const uint32_t q_ld =
+      s_q + 4 * ((16 * warp + mr + 8 * (mj % 2)) * LD + 4 * (mj / 2));
+  const uint32_t k_ld = 4 * ((mr + 8 * (mj / 2)) * LD + 4 * (mj % 2));
+
+  float o[HD / 2], s[BK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f},
+        corr[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  for (int i = 0; i < n_t; ++i) {
+    cp_async_wait<NS - 2>();  // tile i (and Q) copied by this thread
+    __syncthreads();          // ... by every thread; tile i - 1 read by all
+    if (i + NS - 1 < n_t) load_tile(t_lo + i + NS - 1, (i + NS - 1) % NS);
+    cp_async_commit();
+    const uint32_t kt = s_kv + 4 * (2 * (i % NS) * C::TILE);
+    const float* vt = kvs + (2 * (i % NS) + 1) * C::TILE;
+
+    // S = Q K^T over hd, two k-steps of 8 a chain: A = Q's rows, B = K's
+    // rows (K^T's columns), split as they are loaded
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) s[e] = 0.f;
+#pragma unroll 1
+    for (int d0 = 0; d0 < HD; d0 += 16) {
+      AFrag a;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float f[4];
+        ldsm4(f, q_ld + 4 * (d0 + 8 * u));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split(f[j], a.big[u][j], a.small[u][j]);
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; n += 2) {
+        float f[2][4];  // step u: b0, b1 of block n, then of block n + 1
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          ldsm4(f[u], kt + k_ld + 4 * (8 * n * LD + d0 + 8 * u));
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+          mma3x2(s + 4 * (n + nn), a,
+                 {{f[0][2 * nn], f[0][2 * nn + 1]},
+                  {f[1][2 * nn], f[1][2 * nn + 1]}});
+      }
+    }
+
+    const int k0 = (t_lo + i) * BK;
+    tc::online_softmax(
+        s, m, l, corr,
+        tc::edge_tile(k0, BK, Skv, causal, window, prefix, cta.q_lo,
+                      cta.q_hi),
+        tc::Tile{k0 + 2 * t4, hi[0], hi[1], lo[0], lo[1], prefix}, softcap,
+        scale);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+
+    // O += P V over the tile's keys, two blocks of 8 a chain: reduction
+    // column t is key 2 t and column t + 4 key 2 t + 1, so S's registers
+    // are P's A fragment as they lie (A = {c0, c2, c1, c3}) and B reads V's
+    // rows 2 t and 2 t + 1
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; kk += 2) {
+      AFrag a;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* p = s + 4 * (kk + u);
+        split(p[0], a.big[u][0], a.small[u][0]);
+        split(p[2], a.big[u][1], a.small[u][1]);
+        split(p[1], a.big[u][2], a.small[u][2]);
+        split(p[3], a.big[u][3], a.small[u][3]);
+      }
+      const float* vr = vt + (8 * kk + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        mma3x2(o + 4 * n, a,
+               {{vr[8 * n], vr[LD + 8 * n]},
+                {vr[8 * LD + 8 * n], vr[9 * LD + 8 * n]}});
+    }
+  }
+  cp_async_wait<0>();
+
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xFFFFFFFFu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xFFFFFFFFu, l[r], 2);
+    lc[r] = fmaxf(l[r], 1e-30f);
+  }
+  float* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + lr + 8 * r;
+    if (row >= nrows) continue;
+    float* orow = ob + (row % G) * o_sg + (row / G) * o_ss + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(
+          o[4 * n + 2 * r] / lc[r], o[4 * n + 2 * r + 1] / lc[r]);
+  }
+}
+
+template <int HD>
+int launch(const void* q, const long long* qs, const void* k,
+           const long long* ks, const void* v, const long long* vs,
+           void* out, const long long* os, int B, int KV, int G, int Sq,
+           int Skv, int causal, int window, int prefix, float softcap,
+           float scale, cudaStream_t st) {
+  using C = Cfg<HD>;
+  const long long row_tiles =
+      (static_cast<long long>(Sq) * G + C::ROWS - 1) / C::ROWS;
+  if (row_tiles > 65535 || static_cast<long long>(B) * KV > 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t a = cudaFuncSetAttribute(
+      flash_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const dim3 grid(B * KV, static_cast<unsigned>(row_tiles));
+  flash_tf32x3_kernel<HD><<<grid, C::THREADS, C::SMEM, st>>>(
+      static_cast<const float*>(q), qs[0], qs[1], qs[2], qs[3],
+      static_cast<const float*>(k), ks[0], ks[1], ks[2],
+      static_cast<const float*>(v), vs[0], vs[1], vs[2],
+      static_cast<float*>(out), os[0], os[1], os[2], os[3], KV, G, Sq, Skv,
+      causal, window, prefix, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf32x3
+
 template <typename T>
 int launch_hd(int hd, const void* q, const long long* qs, const void* k,
               const long long* ks, const void* v, const long long* vs,
@@ -901,25 +1299,25 @@ int launch_hd(int hd, const void* q, const long long* qs, const void* k,
 #define REPRO_SIMT(HD)                                                      \
   return launch<T, HD>(q, qs, k, ks, v, vs, out, os, B, KV, G, Sq, Skv,     \
                        causal, window, prefix, softcap, scale, st)
-#define REPRO_TC(HD)                                                        \
-  return tc::launch<HD>(q, qs, k, ks, v, vs, out, os, B, KV, G, Sq, Skv,    \
+#define REPRO_TC(NS, HD)                                                    \
+  return NS::launch<HD>(q, qs, k, ks, v, vs, out, os, B, KV, G, Sq, Skv,    \
                         causal, window, prefix, softcap, scale, st)
   if constexpr (std::is_same_v<T, float>) {
     switch (hd) {
       case 16: REPRO_SIMT(16);
       case 32: REPRO_SIMT(32);
-      case 64: REPRO_SIMT(64);
-      case 128: REPRO_SIMT(128);
-      case 256: REPRO_SIMT(256);
+      case 64: REPRO_TC(tf32x3, 64);
+      case 128: REPRO_TC(tf32x3, 128);
+      case 256: REPRO_TC(tf32x3, 256);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
     switch (hd) {
       case 16: REPRO_SIMT(16);
       case 32: REPRO_SIMT(32);
-      case 64: REPRO_TC(64);
-      case 128: REPRO_TC(128);
-      case 256: REPRO_TC(256);
+      case 64: REPRO_TC(tc, 64);
+      case 128: REPRO_TC(tc, 128);
+      case 256: REPRO_TC(tc, 256);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -929,12 +1327,21 @@ int launch_hd(int hd, const void* q, const long long* qs, const void* k,
 
 }  // namespace
 
-// Dynamic shared memory of one tensor-core CTA at head_dim hd (0: none).
+// Dynamic shared memory of one tensor-core CTA at head_dim hd (0: none):
+// the bfloat16 kernel's, and (flash_tf32x3_smem_bytes) the float32 one's.
 extern "C" int flash_tc_smem_bytes(int hd) {
   switch (hd) {
     case 64: return tc::Cfg<64>::SMEM;
     case 128: return tc::Cfg<128>::SMEM;
     case 256: return tc::Cfg<256>::SMEM;
+    default: return 0;
+  }
+}
+extern "C" int flash_tf32x3_smem_bytes(int hd) {
+  switch (hd) {
+    case 64: return tf32x3::Cfg<64>::SMEM;
+    case 128: return tf32x3::Cfg<128>::SMEM;
+    case 256: return tf32x3::Cfg<256>::SMEM;
     default: return 0;
   }
 }
@@ -945,11 +1352,12 @@ extern "C" int flash_tc_smem_bytes(int hd) {
 // stride 1.  hd in {16, 32, 64, 128, 256}.  causal: 0 or 1 (with causal,
 // Sq <= Skv); window <= 0: none; prefix_len <= 0: none (else the length of
 // the bidirectional prefix); softcap <= 0: none; scale: hd^-0.5 rounded to
-// float by the caller.  bfloat16 at hd 64, 128 and 256 takes the
-// tensor-core kernel, which needs q, k and v 16-byte aligned with strides
-// (of axes longer than 1) in multiples of 16 bytes, and returns 10000 + the
-// CUresult when a tensor map cannot be made (10000: the encoder was not
-// found).
+// float by the caller.  At hd 64, 128 and 256 both dtypes take a
+// tensor-core kernel (bfloat16 flash_tc_kernel, float32
+// flash_tf32x3_kernel), which needs q, k and v 16-byte aligned with strides
+// (of axes longer than 1) in multiples of 16 bytes; the bfloat16 one
+// returns 10000 + the CUresult when a tensor map cannot be made (10000: the
+// encoder was not found).
 extern "C" int flash_attention_launch(
     int bf16, const void* q, const long long* q_strides, const void* k,
     const long long* k_strides, const void* v, const long long* v_strides,

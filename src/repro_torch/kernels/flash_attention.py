@@ -6,12 +6,15 @@ Causal, windowed and softcapped attention of q (B, KV, G, Sq, hd) over k/v
 the keys (``q_offset = Skv - Sq``), with an optional bidirectional prefix
 (``prefix_len``: PaliGemma's image tokens, the reference model's mask; the
 TPU kernel has no such argument).  On a CUDA tensor it launches
-``csrc/flash_attention.cu``, whose launcher picks one of two kernels by
-dtype and head_dim (:func:`kernel_path`): bfloat16 at ``TC_HEAD_DIMS`` runs
-on the tensor cores (``wgmma``, K/V tiles by TMA), everything else on the
-CUDA cores; on a CPU tensor it runs ``ref.flash_attention_ref``.  There is
-no backward kernel (the TPU kernel has none), so an input that requires a
-gradient is refused.
+``csrc/flash_attention.cu``, whose launcher picks one of three kernels by
+dtype and head_dim (:func:`kernel_path`): at ``TC_HEAD_DIMS`` both dtypes
+run on the tensor cores, bfloat16 by ``wgmma`` over K/V tiles brought by
+TMA, float32 in 3xTF32 (each operand split into two TF32 parts, three
+``mma.sync`` products a step, accumulated in float32, which holds
+float32's 2e-5 limit where one TF32 product does not); hd 16 and 32 run on
+the CUDA cores.  On a CPU tensor it runs ``ref.flash_attention_ref``.
+There is no backward kernel (the TPU kernel has none), so an input that
+requires a gradient is refused.
 
 Each call hands its flops and bytes (:func:`cost`) to the active cost
 counter (``launch/op_cost``), if there is one: on CUDA beside the launch,
@@ -31,34 +34,51 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL4 = ctypes.c_longlong * 4
 _SIGNATURES = {"flash_attention_launch": [
     _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-    ctypes.c_float, ctypes.c_float, _P], "flash_tc_smem_bytes": [_I]}
+    ctypes.c_float, ctypes.c_float, _P], "flash_tc_smem_bytes": [_I],
+    "flash_tf32x3_smem_bytes": [_I]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: head dims of the tensor-core kernel (bfloat16 only)
+#: head dims of the tensor-core kernels (both dtypes)
 TC_HEAD_DIMS = (64, 128, 256)
 
 
 def kernel_path(dtype: torch.dtype, hd: int) -> str:
     """The kernel the launcher runs for ``dtype`` and ``hd``:
-    ``"tensor-core"`` (``flash_tc_kernel``) or ``"simt"``
-    (``flash_kernel``)."""
-    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
-        return "tensor-core"
-    return "simt"
+    ``"tensor-core"`` (bfloat16, ``flash_tc_kernel``), ``"3xtf32"``
+    (float32, ``flash_tf32x3_kernel``) or ``"simt"`` (``flash_kernel``, hd
+    16 and 32)."""
+    if hd not in TC_HEAD_DIMS:
+        return "simt"
+    return "tensor-core" if dtype == torch.bfloat16 else "3xtf32"
 
 
-def tc_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one tensor-core CTA at head_dim ``hd``
-    (builds the library on first use)."""
-    return _build.load("flash_attention", _SIGNATURES).flash_tc_smem_bytes(hd)
+def tiles(path: str, hd: int) -> tuple:
+    """(query rows a CTA, keys a K/V tile) of the kernel ``path`` at head
+    dim ``hd``, as ``csrc/flash_attention.cu`` sets them: they decide which
+    key tiles a CTA visits and masks (the checks emulate that tiling)."""
+    if path == "tensor-core":
+        return 128, 64 if hd == 256 else 128
+    if path == "3xtf32":
+        return 128, 4096 // hd
+    return 64, 64
+
+
+def tc_smem_bytes(hd: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA of the tensor-core kernel for
+    ``dtype`` at head_dim ``hd`` (builds the library on first use)."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    if dtype == torch.bfloat16:
+        return lib.flash_tc_smem_bytes(hd)
+    return lib.flash_tf32x3_smem_bytes(hd)
 
 
 def check_tma(name: str, ptr: int, shape, strides, itemsize: int) -> None:
-    """Raise ``ValueError`` naming ``name`` unless the tensor-core kernel can
-    read the operand at address ``ptr`` with ``shape`` and element
+    """Raise ``ValueError`` naming ``name`` unless the tensor-core kernels
+    can read the operand at address ``ptr`` with ``shape`` and element
     ``strides``: a 16-byte-aligned base and, for every axis but the last
     that is longer than 1, a stride that is a multiple of 16 bytes (what
-    TMA needs of k and v, and the 16-byte loads of q's rows)."""
+    TMA needs of k and v, and the 16-byte loads of q's rows and, in
+    float32, of every operand's)."""
     if ptr % 16:
         raise ValueError(f"flash_attention: {name} starts at {ptr:#x}, not "
                          "16-byte aligned (the tensor-core kernel reads it "
@@ -120,7 +140,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``bq`` and ``bkv`` are the TPU kernel's tile sizes, which do not change
     the answer; they are accepted and ignored (the CUDA kernels tile by
     their own sizes and do not pad the ragged tails).  The tensor-core
-    kernel raises ``ValueError`` on operands :func:`check_tma` refuses."""
+    kernels raise ``ValueError`` on operands :func:`check_tma` refuses."""
     del bq, bkv
     prefix_len = int(prefix_len)
     _check(q, k, v, causal, prefix_len)
@@ -143,7 +163,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} with strides "
                              f"{t.stride()} has a strided last axis")
-        if kernel_path(q.dtype, hd) == "tensor-core":
+        if kernel_path(q.dtype, hd) != "simt":
             check_tma(name, t.data_ptr(), t.shape, t.stride(),
                       t.element_size())
     out = torch.empty((B, Sq, KV, G, hd), dtype=q.dtype,

@@ -8,10 +8,12 @@ ragged tails, windows under a tile).  Tolerances: float32 within 2e-5
 (rtol = atol, sums in another order); bfloat16 within one bfloat16 step of
 each element plus half a step of the largest (both sides sum in float32 and
 round once).  The port's CPU ``blockwise_attention`` computes the same
-function and is held to the plain version.  On the card, bfloat16 at head
-dims 64, 128 and 256 runs on the tensor cores with p rounded to bfloat16
-for the value product; ``tensor_core_emulation`` rehearses that arithmetic
-here against the Pallas kernel under the same bfloat16 limit.
+function and is held to the plain version.  On the card, head dims 64, 128
+and 256 run on the tensor cores: bfloat16 with p rounded to bfloat16 for
+the value product, float32 in 3xTF32 (each operand split into two TF32
+parts, three products a step); ``tile_emulation`` rehearses both
+arithmetics here against the Pallas kernel, under the bfloat16 limit and
+within float32's 2e-5, and shows one TF32 pass going past the latter.
 
 The bidirectional prefix (PaliGemma's ``prefix_len``) is the reference
 model's mask, which the Pallas kernel lacks: the plain version, the model
@@ -19,8 +21,8 @@ layout and the port's CPU loop are held to the JAX model's
 ``blockwise_attention`` at ``chunk_q >= prefix_len``, where that loop's
 tiles give the mask on absolute positions; below it the reference's tiles
 hide prefix keys (pinned by ``test_reference_prefix_quirk``).
-``tile_emulation`` rehearses both CUDA kernels' tile ranges and the
-tensor-core kernel's edge test with the prefix."""
+``tile_emulation`` rehearses the CUDA kernels' tile ranges and the
+tensor-core kernels' edge test with the prefix."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,7 +35,7 @@ from repro.models import attention as jattn
 from repro_torch import configs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (check_tma, flash_attention,
-                                                 kernel_path)
+                                                 kernel_path, tiles)
 from repro_torch.models.attention import blockwise_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -228,25 +230,68 @@ def _edge(k0, bk, Skv, q_lo, q_hi, causal, window, P, naive=False):
                 and not (k0 + bk <= P)))
 
 
-def tile_emulation(q, k, v, *, kernel="tensor-core", causal=True,
-                   window=None, softcap=None, prefix_len=0, wrong=None):
-    """The tiling of one of ``csrc/flash_attention.cu``'s kernels, on the CPU
-    (a test aid, not the function's plain version): CTAs of flattened
-    (position, head) rows, each over its own range of key tiles, widened by
-    a prefix to key 0 and, for a CTA with a row below ``prefix_len``, to the
-    prefix's last tile.  ``"tensor-core"``: 128 rows, tiles of 128 keys (64
-    at hd 256), masks (as its two bounds a row) only on the tiles the
-    kernel's edge test marks, S =
-    q . k of the bfloat16 values in float32 times hd^-0.5, p rounded to
-    bfloat16 for the value product only, l summing the float32 p.
-    ``"simt"``: 64 rows, tiles of 64 keys, masks on every tile, p in
-    float32.  ``wrong``: ``"range"`` leaves the tile range unwidened (keys
-    past the causal range skipped), ``"edge"`` takes the naive edge test."""
+LOG2E = 1.4426950408889634
+
+
+def tf32(x):
+    """float32 ``x`` rounded to TF32 as ``flash_tf32x3_kernel`` rounds: to
+    nearest, ties away from zero, on the float32 bits ((bits + 0x1000) &
+    ~0x1FFF, ``cvt.rna.tf32.f32``)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a, b):
+    """a @ b as the 3xTF32 kernel computes it: each operand split into big
+    = tf32(x) and small = tf32(x - big), small*big + big*small + big*big
+    summed in float32 (each product of two TF32 values is exact in
+    float32)."""
+    ab, bb = tf32(a), tf32(b)
+    return (tf32(a - ab) @ bb + ab @ tf32(b - bb)) + ab @ bb
+
+
+def matmul_1xtf32(a, b):
+    """a @ b of one TF32 pass (a wrong float32 kernel): 11 significant bits
+    of each operand."""
+    return tf32(a) @ tf32(b)
+
+
+def tile_emulation(q, k, v, **kw):
+    """:func:`_tile_emulation` on one CPU thread: its per-tile products are
+    small, and beside other test workers a thread pool only slows them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _tile_emulation(q, k, v, **kw)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _tile_emulation(q, k, v, *, kernel="tensor-core", causal=True,
+                    window=None, softcap=None, prefix_len=0, wrong=None):
+    """The tiling and arithmetic of one of ``csrc/flash_attention.cu``'s
+    kernels, on the CPU (a test aid, not the function's plain version):
+    CTAs of flattened (position, head) rows (``tiles``), each over its
+    own range of key tiles, widened by a prefix to key 0 and, for a CTA
+    with a row below ``prefix_len``, to the prefix's last tile.  The two
+    tensor-core kernels (``"tensor-core"``, bfloat16, and ``"3xtf32"``,
+    float32) mask (as their two bounds a row) only the tiles their edge
+    test marks, and run the online softmax in base 2 (scores times hd^-0.5
+    log2 e); ``"tensor-core"`` takes S = q . k of the bfloat16 values in
+    float32 and rounds p to bfloat16 for the value product only;
+    ``"3xtf32"`` runs both products in 3xTF32 (:func:`matmul_3xtf32`).
+    ``"simt"``: masks on every tile, base e, p in float32.  l sums the
+    float32 p everywhere.  ``wrong``: ``"range"`` leaves the tile range
+    unwidened (keys past the causal range skipped), ``"edge"`` takes the
+    naive edge test, ``"one-pass"`` runs ``"3xtf32"``'s products in one
+    TF32 pass (:func:`matmul_1xtf32`)."""
     B, KV, G, Sq, hd = q.shape
     Skv = k.shape[2]
-    tc = kernel == "tensor-core"
-    rows_per_cta = 128 if tc else 64
-    bk = (64 if hd == 256 else 128) if tc else 64
+    tc = kernel != "simt"
+    rows_per_cta, bk = tiles(kernel, hd)
+    mm = torch.matmul
+    if kernel == "3xtf32":
+        mm = matmul_1xtf32 if wrong == "one-pass" else matmul_3xtf32
     n, q_offset, scale = Sq * G, Skv - Sq, hd ** -0.5
     P = prefix_len
     rows = q.float().permute(0, 1, 3, 2, 4).reshape(B, KV, n, hd)
@@ -271,12 +316,19 @@ def tile_emulation(q, k, v, *, kernel="tensor-core", causal=True,
         for t in range(t_lo, t_hi):
             kpos = torch.arange(t * bk, (t + 1) * bk)
             kt, vt = kf[:, :, t * bk:(t + 1) * bk], vf[:, :, t * bk:(t + 1) * bk]
-            s = rows[:, :, r0:r1] @ kt.transpose(-1, -2) * scale
-            if softcap is not None:
-                s = softcap * torch.tanh(s / softcap)
+            s = mm(rows[:, :, r0:r1], kt.transpose(-1, -2))
+            if tc:     # base 2, as tc::online_softmax
+                if softcap is not None:
+                    s = (softcap * LOG2E) * torch.tanh(s * (scale / softcap))
+                else:
+                    s = s * (scale * LOG2E)
+            else:
+                s = s * scale
+                if softcap is not None:
+                    s = softcap * torch.tanh(s / softcap)
             if tc and _edge(t * bk, bk, Skv, q_lo, q_hi, causal, window, P,
                             naive=wrong == "edge"):
-                # the tensor-core kernel's two bounds a row (``Tile``)
+                # the tensor-core kernels' two bounds a row (``Tile``)
                 hi = (torch.clamp(torch.clamp(qpos, min=P - 1), max=Skv - 1)
                       if causal else torch.full_like(qpos, Skv - 1))
                 lo = qpos - window if window else torch.full_like(qpos, -1)
@@ -295,11 +347,12 @@ def tile_emulation(q, k, v, *, kernel="tensor-core", causal=True,
                                    | in_prefix)
                 s = torch.where(mask, s, -1e30)
             m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
+            exp = torch.exp2 if tc else torch.exp
+            p = exp(s - m_new[..., None])
+            corr = exp(m - m_new)
             l = l * corr + p.sum(-1)
-            pv = p.to(torch.bfloat16).float() if tc else p
-            acc = acc * corr[..., None] + pv @ vt
+            pv = p.to(torch.bfloat16).float() if kernel == "tensor-core" else p
+            acc = acc * corr[..., None] + mm(pv, vt)
             m = m_new
         out[:, :, r0:r1] = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, KV, Sq, G, hd).permute(0, 1, 3, 2, 4).to(q.dtype)
@@ -311,24 +364,25 @@ def tensor_core_emulation(q, k, v, **kw):
 
 
 # PaliGemma's flash layout (one KV head, G 16 with its padding, hd 256): a
-# tensor-core CTA covers 8 positions, a SIMT one 4, so prefixes of 1, 7 and
-# 100 end inside a CTA; 100 also reaches past the first key tile (64 keys)
+# tensor-core CTA (either dtype) covers 8 positions, a SIMT one 4, so
+# prefixes of 1, 7 and 100 end inside a CTA; 100 also reaches past the
+# first key tile (64 keys; 16 for the 3xTF32 kernel)
 PREFIX_TILE_CASES = [(1, 96, None, None), (7, 300, None, None),
                      (64, 96, None, None), (100, 300, None, None),
                      (100, 300, 16, None), (7, 96, 16, 20.0)]
 
 
 @pytest.mark.parametrize("prefix_len,S,window,softcap", PREFIX_TILE_CASES)
-@pytest.mark.parametrize("kernel", ["tensor-core", "simt"])
+@pytest.mark.parametrize("kernel", ["tensor-core", "3xtf32", "simt"])
 def test_kernel_tiling_with_prefix(kernel, prefix_len, S, window, softcap):
     """Each kernel's tiling with the prefix (q (2, 1, 16, S, 256)) against
     the JAX model's ``blockwise_attention`` over one tile (its mask on
-    absolute positions): the tensor-core kernel's in bfloat16 under the
-    bfloat16 limit, the SIMT kernel's in float32 within 2e-5.  Where the
-    prefix reaches past the first key tile (64 keys), the tile range left
-    unwidened goes past the limit, and so does the tensor-core kernel with
-    the naive edge test (its CTAs wholly inside the prefix then leave the
-    tile across the prefix's end unmasked)."""
+    absolute positions): the bfloat16 tensor-core kernel's under the
+    bfloat16 limit, the 3xTF32 and SIMT kernels' in float32 within 2e-5.
+    Where the prefix reaches past 64 keys (every kernel's first key tile),
+    the tile range left unwidened goes past the limit, and so do the
+    tensor-core kernels with the naive edge test (their CTAs wholly inside
+    the prefix then leave the tile across the prefix's end unmasked)."""
     dtype = "bfloat16" if kernel == "tensor-core" else "float32"
     (jq, tq), (jk, tk), (jv, tv) = prefix_inputs(13, S, KV=1, G=16, hd=256,
                                                  dtype=dtype)
@@ -346,7 +400,7 @@ def test_kernel_tiling_with_prefix(kernel, prefix_len, S, window, softcap):
     assert_close(run(), want, dtype)
     wrongs = []
     if prefix_len > 64:
-        wrongs = ["range", "edge"] if kernel == "tensor-core" else ["range"]
+        wrongs = ["range"] if kernel == "simt" else ["range", "edge"]
     for wrong in wrongs:
         with pytest.raises(AssertionError):
             assert_close(run(wrong), want, dtype)
@@ -366,55 +420,6 @@ def test_wrapper_refuses():
         flash_attention(k, k, k)
 
 
-def tensor_core_emulation(q, k, v, *, causal=True, window=None,
-                          softcap=None):
-    """The arithmetic of ``csrc/flash_attention.cu``'s tensor-core kernel,
-    on the CPU (a test aid, not the function's plain version): CTAs of 128
-    flattened (position, head) rows, each over its own range of key tiles of
-    the kernel's size (128 keys; 64 at hd 256); S = q . k of the bfloat16
-    values in float32, then times hd^-0.5; p rounded to bfloat16 for the
-    value product only, l summing the float32 p."""
-    B, KV, G, Sq, hd = q.shape
-    Skv = k.shape[2]
-    bk = 64 if hd == 256 else 128
-    n, q_offset, scale = Sq * G, Skv - Sq, hd ** -0.5
-    rows = q.float().permute(0, 1, 3, 2, 4).reshape(B, KV, n, hd)
-    pad = (0, 0, 0, -Skv % bk)
-    kf = torch.nn.functional.pad(k.float(), pad)
-    vf = torch.nn.functional.pad(v.float(), pad)
-    out = torch.empty(B, KV, n, hd)
-    for r0 in range(0, n, 128):
-        r1 = min(r0 + 128, n)
-        qpos = torch.arange(r0, r1) // G + q_offset
-        q_lo, q_hi = int(qpos[0]), int(qpos[-1])
-        ntiles = -(-Skv // bk)
-        t_hi = min(ntiles, q_hi // bk + 1) if causal else ntiles
-        t_lo = max(0, q_lo - window + 1) // bk if window else 0
-        m = torch.full((B, KV, r1 - r0), -1e30)
-        l = torch.zeros(B, KV, r1 - r0)
-        acc = torch.zeros(B, KV, r1 - r0, hd)
-        for t in range(t_lo, t_hi):
-            kpos = torch.arange(t * bk, (t + 1) * bk)
-            kt, vt = kf[:, :, t * bk:(t + 1) * bk], vf[:, :, t * bk:(t + 1) * bk]
-            s = rows[:, :, r0:r1] @ kt.transpose(-1, -2) * scale
-            if softcap is not None:
-                s = softcap * torch.tanh(s / softcap)
-            mask = (kpos < Skv)[None, :]
-            if causal:
-                mask = mask & (qpos[:, None] >= kpos[None, :])
-            if window is not None:
-                mask = mask & (kpos[None, :] > qpos[:, None] - window)
-            s = torch.where(mask, s, -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p.to(torch.bfloat16).float() @ vt
-            m = m_new
-        out[:, :, r0:r1] = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, KV, Sq, G, hd).permute(0, 1, 3, 2, 4).to(q.dtype)
-
-
 @pytest.mark.parametrize("qshape,skv,window,softcap", [
     ((1, 1, 4, 384, 128), 384, None, None),    # qwen3_4b: G 4, hd 128
     ((1, 2, 2, 256, 128), 256, 33, 50.0),      # gemma2: G 2, window, softcap
@@ -428,16 +433,53 @@ def test_tensor_core_numerics(qshape, skv, window, softcap):
                               bq=128, bkv=128, interpret=True), "bfloat16")
 
 
+@pytest.mark.parametrize("qshape,skv,window,softcap", [
+    ((1, 1, 4, 384, 128), 384, None, None),    # qwen3_4b: G 4, hd 128
+    ((1, 2, 2, 256, 128), 256, 33, 50.0),      # gemma2: G 2, window, softcap
+    ((1, 1, 5, 150, 64), 200, None, None)])    # hymba_1_5b: G 5, hd 64
+def test_tf32x3_numerics(qshape, skv, window, softcap):
+    """The 3xTF32 kernel's arithmetic (its tiles, both products split into
+    TF32 parts, the base-2 softmax) in float32 within 2e-5 of the Pallas
+    kernel; one TF32 pass on the same tiles goes past that limit."""
+    (jq, tq), (jk, tk), (jv, tv) = inputs(7, qshape, skv)
+    want = j_flash(jq, jk, jv, window=window, softcap=softcap, bq=128,
+                   bkv=128, interpret=True)
+    kw = dict(kernel="3xtf32", window=window, softcap=softcap)
+    assert_close(tile_emulation(tq, tk, tv, **kw), want)
+    with pytest.raises(AssertionError):
+        assert_close(tile_emulation(tq, tk, tv, wrong="one-pass", **kw), want)
+
+
+def test_tf32_rounding():
+    """``tf32``: 13 low bits cleared, to nearest with ties away from zero
+    on both signs; the 3xTF32 split keeps x within 2^-22 |x|, one TF32
+    value only within 2^-11 |x|."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -12])
+    assert tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                                -(1.0 + 2 ** -10), 1.0]
+    y = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        4096).astype(np.float32))
+    big = tf32(y)
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((y - big).abs() <= 2 ** -11 * y.abs()).all()
+    split = big.double() + tf32(y - big).double()
+    assert ((split - y.double()).abs() <= 2 ** -22 * y.abs().double()).all()
+
+
 def test_every_attention_config_takes_the_tensor_cores():
-    """bfloat16 at every head_dim of the port's attention configs goes to
-    the tensor-core kernel; float32, and bfloat16 at hd 16 and 32, do not."""
+    """Every head_dim of the port's attention configs goes to a tensor-core
+    kernel in both dtypes: bfloat16 to ``flash_tc_kernel``, float32 to the
+    3xTF32 kernel; hd 16 and 32 (the checks' shapes) stay on the SIMT
+    kernel."""
     for name in configs.list_archs():
         cfg = configs.get(name)
         if cfg.num_heads:
-            assert kernel_path(torch.bfloat16, cfg.resolved_head_dim) == \
-                "tensor-core", name
-    assert kernel_path(torch.float32, 128) == "simt"
+            hd = cfg.resolved_head_dim
+            assert kernel_path(torch.bfloat16, hd) == "tensor-core", name
+            assert kernel_path(torch.float32, hd) == "3xtf32", name
     assert kernel_path(torch.bfloat16, 32) == "simt"
+    assert kernel_path(torch.float32, 32) == "simt"
 
 
 def _misaligned(case):

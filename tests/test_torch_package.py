@@ -89,7 +89,8 @@ FORBIDDEN = re.compile(r"^\s*(import jax|from jax|from repro\.|import repro\.|"
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     + [ROOT / "chip_smoke.py"]
-    + list((ROOT / "examples").glob("*_torch.py"))),
+    + list((ROOT / "examples").glob("*_torch.py"))
+    + list((ROOT / "tools").glob("*.py"))),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     text = path.read_text()
