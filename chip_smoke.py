@@ -9,7 +9,7 @@ Phases, each of which raises on failure (exit code 1):
       ``nvidia-smi --query-gpu=name,power.limit`` reports them;
   (b) build: every CUDA source of the port with ``nvcc`` (all at once),
       and each kernel's registers, spills and shared memory from ptxas;
-      beside them three wrong lookup kernels for (c) (``LOOKUP_WRONG``);
+      beside them four wrong lookup kernels for (c) (``LOOKUP_WRONG``);
   (c) each kernel against its plain PyTorch version on the card: bit for
       bit, the lookup (traditional and shortcut, N=1 and N=4 shards, key
       counts off the tile, absent keys), the routed lookup (four flag
@@ -38,15 +38,20 @@ Phases, each of which raises on failure (exit code 1):
       batch of those traces; the baseline lookups on states that reach
       their edges (``lookup_edge_states``: HT at 2^4 slots all taken, so a
       miss wraps the window over the table twice, at 2^0, a crowded table's
-      full windows, keys behind an EMPTY slot; HTI mid-migration with the
+      full windows, keys behind an EMPTY slot, probes that run from a
+      sector's last slot into the next, hits at home + 8, 2^2 and 2^3
+      slots with keys past 2^L in the arrays, probe counts off the 256-key
+      block and a single probe; HTI mid-migration with the
       old and with the new table first, a key in both, migrated slots'
       values left behind, drained; CH chains of several buckets, heads -1,
-      duplicate appends, values equal to MISS, 5-slot rows, capacity out;
-      the keys 0, 0xFFFFFFFE and 0xFFFFFFFF among the probes), bit for bit,
-      each beside a wrong kernel that must differ (a probe past the first
-      EMPTY, the new table always first, a walk that stops after the head
-      bucket); the four lookup entry points (traditional, shortcut, stacked,
-      routed) at S = 4, 8, 16 and 512 (the probe's scalar path at 4 and
+      duplicate appends, values equal to MISS, 5- and 6-slot rows, 16-slot
+      rows with hits in every 16-byte quarter, 20-slot rows (two chunks),
+      capacity out; the keys 0, 0xFFFFFFFE and 0xFFFFFFFF among the
+      probes), bit for bit, each beside wrong kernels that must differ (a
+      probe past the first EMPTY, the new table always first, a walk that
+      stops after the head bucket, a value from the wrong 16-byte quarter
+      of its row); the four lookup entry points (traditional, shortcut,
+      stacked, routed) at S = 4, 8, 16 and 512 (the probe's scalar path at 4 and
       8), on indexes whose capacity ran out, absent keys and the EMPTY
       pattern among the probes; within 2e-5 (1 + |want|) in float32 and 2^-7 |want| + 2^-8 max |want| in
       bfloat16 (one bfloat16 step of the element, half a step of the
@@ -175,6 +180,9 @@ Phases, each of which raises on failure (exit code 1):
       asserted: every key not lost returns its value, every absent key
       MISS, and 2^16 sampled lookups equal those on a CPU copy) beside the
       plain version's on the card on the same state (equal bit for bit),
+      each lookup's byte bound beside its sector floor (the random 64-byte
+      fetches its probes must touch at the card's measured random-read
+      rate; the hits in each of HTI's tables),
       peak memory per table, each insert kernel's time on the last batch
       (one call on a copy of the state before it; two more calls are
       logged beside it) against its plain loop on the same state (HT's
@@ -306,6 +314,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 PEAK_BF16 = 989e12               # H100 SXM dense bfloat16 tensor cores (same)
 PEAK_TF32 = 494.7e12             # ... dense TF32 tensor cores (same)
 PEAK_F32 = 67e12                 # ... float32 on the CUDA cores (same)
+# random reads of the memory, at most 34.18 G/s, each fetching 64 bytes (the
+# L2's fetch granularity): tools/random_sector_peak.py on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md §6); the baseline lookups' sector floor
+RANDOM_READS_PER_S = 34.18e9
+FETCH_BYTES = 64
 # a float32 flash flop is three TF32 products on the tensor cores (3xTF32)
 PEAK_F32_FLASH = PEAK_TF32 / 3
 MISS = 0xFFFFFFFF
@@ -464,45 +477,51 @@ def ptxas_summary(out: str) -> list:
 
 # (c): wrong lookup kernels that must fail on the edge states
 # (``lookup_edge_states``): the sound source of ``baselines_lookup.cu`` with
-# one line replaced, built beside the port's library and never into it
+# one line replaced, built beside the port's library and never into it; each
+# name -> (the table whose states it is checked on, the line, its
+# replacement, what the wrong kernel does).
 LOOKUP_WRONG = {
-    "ht": ("if (k == repro::kEmpty) return repro::kMiss;", "",
+    "ht": ("ht", "if (k == repro::kEmpty) return repro::kMiss;", "",
            "a probe that does not stop at the first EMPTY"),
-    "hti": ("TWO_TABLES && __ldg(a.count[0]) < __ldg(a.count[1]);", "false;",
-            "the new table always probed first"),
-    "ch": ("cur = __ldg(a.next + cur);", "cur = -1;",
+    "hti": ("hti", "TWO_TABLES && __ldg(a.count[0]) < __ldg(a.count[1]);",
+            "false;", "the new table always probed first"),
+    "ch": ("ch", "cur = __ldcs(a.next + cur);", "cur = -1;",
            "a walk that stops after the head bucket"),
+    "ch_quarter": ("ch", "return __ldcs(a.bv + row + c + j);",
+                   "return __ldcs(a.bv + row + c + (j ^ 4));",
+                   "a hit's value taken from the next 16-byte quarter of its "
+                   "row"),
 }
 
 
-def wrong_lookup_source(table: str, source: str) -> str:
-    """``baselines_lookup.cu``'s ``source`` with ``LOOKUP_WRONG[table]``'s
+def wrong_lookup_source(name: str, source: str) -> str:
+    """``baselines_lookup.cu``'s ``source`` with ``LOOKUP_WRONG[name]``'s
     line replaced."""
-    old, new, _ = LOOKUP_WRONG[table]
-    assert source.count(old) == 1, f"the wrong {table} lookup's line moved"
+    _, old, new, _ = LOOKUP_WRONG[name]
+    assert source.count(old) == 1, f"the wrong {name} lookup's line moved"
     return source.replace(old, new)
 
 
 def start_wrong_lookups(_build) -> dict:
     """One ``nvcc`` per wrong lookup kernel, started at once; returns
-    ``{table: (process, library path)}``."""
+    ``{name: (process, library path)}``."""
     out = _build.BUILD_DIR / "wrong_lookup"
     out.mkdir(parents=True, exist_ok=True)
     source = (_build.CSRC / "baselines_lookup.cu").read_text()
     started = {}
-    for table in LOOKUP_WRONG:
-        src, lib = out / f"{table}.cu", out / f"lib{table}.so"
-        src.write_text(wrong_lookup_source(table, source))
+    for name in LOOKUP_WRONG:
+        src, lib = out / f"{name}.cu", out / f"lib{name}.so"
+        src.write_text(wrong_lookup_source(name, source))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", str(lib), str(src)]
-        started[table] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True), lib)
     return started
 
 
 def phase_build(_build) -> dict:
-    """(b); returns the wrong lookup kernels' libraries, by table."""
+    """(b); returns the wrong lookup kernels' libraries, by name."""
     t0 = time.perf_counter()
     wrong = start_wrong_lookups(_build)
     try:
@@ -517,10 +536,10 @@ def phase_build(_build) -> dict:
         for line in ptxas_summary(out):
             log(f"(b)   {line}")
     libs = {}
-    for table, (proc, lib) in wrong.items():
+    for name, (proc, lib) in wrong.items():
         out, _ = proc.communicate()
-        assert proc.returncode == 0, f"(b) wrong {table} lookup:\n{out}"
-        libs[table] = lib
+        assert proc.returncode == 0, f"(b) wrong {name} lookup:\n{out}"
+        libs[name] = lib
     log(f"(b) build wall time {time.perf_counter() - t0:.1f} s "
         f"({len(report)} sources compiled, and {len(libs)} wrong lookup "
         f"kernels for (c))")
@@ -946,10 +965,12 @@ def lookup_edge_states(np, seed: int) -> list:
     def vals_of(n):
         return rng.integers(1, MISS, n, dtype=np.uint32)
 
-    def add(label, table, st, probes, case):
+    def add(label, table, st, probes, case, with_edge=True):
         assert case, f"lookup edge state {label!r} missed its case"
         arrays = tuple(np.array(a.numpy()) for a in st)
-        probes = np.concatenate([np.asarray(probes, np.uint32), edge])
+        probes = np.asarray(probes, np.uint32)
+        if with_edge:
+            probes = np.concatenate([probes, edge])
         states.append((label, table, arrays, probes))
 
     def ht_arrays(tk, tv, L):
@@ -998,6 +1019,63 @@ def lookup_edge_states(np, seed: int) -> list:
         np.concatenate([base, hidden, keys_of(64, 509)]),
         int((lost == MISS).sum()) >= 5)
 
+    # sector edges (fabricated): keys placed d slots past their home behind
+    # d filler keys; homes at a sector's last slot with d 1..3 run into the
+    # next sector, d 8 lands on home + 8 (the next sector's same offset) from
+    # every offset, d 12 and 20 run over two and three sectors
+    L = 10
+    tk = np.full(1 << 11, MISS, np.uint32)
+    tv = np.zeros(1 << 11, np.uint32)
+    fill = iter(keys_of(1200, 517).tolist())
+    pool = keys_of(4000, 518).tolist()
+    plan = ([(7, d) for d in (1, 2, 3)] * 2 + [(o, 8) for o in range(8)]
+            + [(o, d) for o in (0, 3, 7) for d in (12, 20)])
+    placed = []
+    for o, d in plan:
+        for key in pool:
+            home = hashing.hash_dir_host(key) >> (32 - L)
+            span = [(home + j) % (1 << L) for j in range(d + 1)]
+            if home % 8 == o and (tk[span] == MISS).all():
+                break
+        else:
+            raise AssertionError(f"no key with its home at offset {o} and "
+                                 f"{d + 1} free slots")
+        pool.remove(key)
+        for q in span[:-1]:
+            tk[q], tv[q] = next(fill), vals_of(1)[0]
+        tk[span[-1]], tv[span[-1]] = key, vals_of(1)[0]
+        placed.append(key)
+    st = ht_arrays(tk, tv, L)
+    found = bl.ht_lookup_plain(st, placed).numpy().view(np.uint32)
+    fillers = tk[(tk != MISS) & ~np.isin(tk, placed)]
+    add("HT sector edges (fabricated): probes from a sector's last slot "
+        "into the next, hits at home + 8 from every offset, at + 12, + 20",
+        "ht", st, np.concatenate([placed, fillers[:40], keys_of(64, 519)]),
+        bool((found != MISS).all()))
+    # tables of 2^2 and 2^3 slots (under and at one sector) whose arrays
+    # hold keys past 2^L, which no probe may read
+    for L, n_in in ((2, 3), (3, 7)):
+        tk = np.full(1 << 5, MISS, np.uint32)
+        tv = np.zeros(1 << 5, np.uint32)
+        inside = keys_of(n_in, 520 + L)
+        for key, v in zip(inside.tolist(), vals_of(n_in).tolist()):
+            bl.probe_put(tk, tv, key, v, L)
+        past = keys_of(16, 522 + L)
+        tk[1 << L:(1 << L) + 16], tv[1 << L:(1 << L) + 16] = past, vals_of(16)
+        st = ht_arrays(tk, tv, L)
+        got = bl.ht_lookup_plain(st, np.concatenate([inside, past]))
+        got = got.numpy().view(np.uint32)
+        add(f"HT 2^{L} slots, {n_in} taken, keys past 2^{L} in the arrays "
+            f"(fabricated)", "ht", st,
+            np.concatenate([inside, past, keys_of(16, 524 + L)]),
+            bool((got[:n_in] != MISS).all() and (got[n_in:] == MISS).all()))
+    k = keys_of(600, 527)
+    st = bl.ht_insert_many(bl.ht_create(12, 4, device="cpu"), k, vals_of(600))
+    probes = np.concatenate([k, keys_of(940, 528)])
+    add("HT 1543 probes (counts off the 256-key block)", "ht", st, probes,
+        probes.size + edge.size == 1543)
+    add("HT one probe", "ht", st, k[:1], True, with_edge=False)
+
     # HTI: migrate_batch 1 from 2^6 slots; the EMPTY pattern inserted first
     # (never migrated); 5 inserts into the migration: the old table fuller
     k = keys_of(200, 510)
@@ -1038,6 +1116,7 @@ def lookup_edge_states(np, seed: int) -> list:
     st = bl.hti_insert_many(st, k[i:i + 1], vals_of(1), migrate_batch=4096)
     add("HTI drained (the EMPTY pattern left in the old table)", "hti", st,
         probes, not bool(st.migrating) and int(st.old_count) == 1)
+    add("HTI one probe", "hti", st, k[:1], True, with_edge=False)
 
     # CH: 64 chains of 4-slot buckets: one chain of 4 buckets, others of
     # one, most heads -1; the EMPTY pattern stored; duplicate appends (the
@@ -1066,14 +1145,30 @@ def lookup_edge_states(np, seed: int) -> list:
     st = bl.ch_insert_many(bl.ch_create(3, 8, 4, device="cpu"), k,
                            vals_of(60))
     add("CH capacity out (dropped keys)", "ch", st, k, int(st.dropped) > 0)
+    # Fig. 7's 16-slot rows (one chunk: four 16-byte quarters), chains of
+    # several buckets with a hit in every quarter; 20-slot rows (a second
+    # chunk of one quarter); 6-slot rows (slot by slot)
+    for T, S, n_k in ((2, 16, 200), (3, 20, 150), (3, 6, 100)):
+        k = keys_of(n_k, 530 + S)
+        st = bl.ch_insert_many(bl.ch_create(T, 64, S, device="cpu"), k,
+                               vals_of(n_k))
+        bk = st.bucket_keys.numpy().view(np.uint32)
+        stored = np.isin(bk, k)
+        case = {16: all(stored[:, 4 * q:4 * q + 4].any() for q in range(4)),
+                20: bool(stored[:, 16:].any()),
+                6: int(st.num_buckets) > 1 << T}[S]
+        add(f"CH {1 << T} chains of {S}-slot rows", "ch", st,
+            np.concatenate([k, keys_of(64, 540 + S)]),
+            case and int(st.dropped) == 0)
+    add("CH one probe", "ch", st, k[:1], True, with_edge=False)
     return states
 
 
 def baseline_lookups(torch, np, seed: int, wrong: dict) -> None:
     """(c): the three lookup kernels against their plain versions on the
     card, bit for bit, on ``lookup_edge_states``; each wrong kernel
-    (``wrong``: table -> its library, ``LOOKUP_WRONG``) must differ from
-    the plain version on a state of its table."""
+    (``wrong``: name -> its library, ``LOOKUP_WRONG``) must differ from the
+    plain version on a state of its table."""
     import ctypes
 
     from repro_torch import convert
@@ -1089,13 +1184,13 @@ def baseline_lookups(torch, np, seed: int, wrong: dict) -> None:
              "ch": (convert.ch_state_from_numpy, bl.ch_lookup_many,
                     bl.ch_lookup_plain, "ch_lookup")}
     libs = {}
-    for table, path in wrong.items():
-        libs[table] = ctypes.CDLL(str(path))
+    for wname, path in wrong.items():
+        libs[wname] = ctypes.CDLL(str(path))
         for fn, argtypes in look._SIGNATURES.items():
-            getattr(libs[table], fn).argtypes = argtypes
-            getattr(libs[table], fn).restype = ctypes.c_int
+            getattr(libs[wname], fn).argtypes = argtypes
+            getattr(libs[wname], fn).restype = ctypes.c_int
     sound = look._lib()
-    differ = dict.fromkeys(kinds, 0)
+    differ = dict.fromkeys(wrong, 0)
     for label, table, arrays, probes in lookup_edge_states(np, seed):
         make, lookup, plain, name = kinds[table]
         st = make(arrays, device=dev)
@@ -1105,19 +1200,25 @@ def baseline_lookups(torch, np, seed: int, wrong: dict) -> None:
         assert _build.launches().get(name, 0) == before + 1, \
             f"(c) {label}: {name} did not launch"
         assert equal_bits(got, want), f"(c) {label}: {name} differs"
-        _build._libs["baselines_lookup"] = libs[table]
-        try:
-            bad = lookup(st, q)
-        finally:
-            _build._libs["baselines_lookup"] = sound
-        n_bad = int((hashing.bits(bad) != hashing.bits(want)).sum())
-        differ[table] += n_bad
+        bad_counts = []
+        for wname in wrong:
+            if LOOKUP_WRONG[wname][0] != table:
+                continue
+            _build._libs["baselines_lookup"] = libs[wname]
+            try:
+                bad = lookup(st, q)
+            finally:
+                _build._libs["baselines_lookup"] = sound
+            n_bad = int((hashing.bits(bad) != hashing.bits(want)).sum())
+            differ[wname] += n_bad
+            bad_counts.append(f"{wname} ({LOOKUP_WRONG[wname][3]}) on "
+                              f"{n_bad}")
         hits = int((hashing.bits(want) != -1).sum())
         log(f"(c) {name} kernel == plain, {label}: {probes.size} probes, "
-            f"{hits} not MISS; the wrong kernel ({LOOKUP_WRONG[table][2]}) "
-            f"differs on {n_bad}")
-    for table, n in differ.items():
-        assert n > 0, f"(c) the wrong {table} lookup agrees on every state"
+            f"{hits} not MISS; the wrong kernels differ: "
+            + "; ".join(bad_counts))
+    for wname, n in differ.items():
+        assert n > 0, f"(c) the wrong {wname} lookup agrees on every state"
 
 
 def lookup_shapes(torch, np, seed: int) -> None:
@@ -3836,21 +3937,45 @@ FIG7_MEMORY_STATS = ("segment.all.allocated", "num_alloc_retries",
                      "allocated_bytes.all.peak")
 
 
-def open_probes(torch, table_keys, log2: int, q, chunk: int = 1 << 20):
-    """Per key of ``q`` (int32 bits), the slots its probe reads in an open
-    table of ``2**log2`` slots (up to the first slot that holds the key or
-    is EMPTY, else the whole window) and whether it stopped on the key."""
+def open_windows(torch, table_keys, log2: int, q, chunk: int = 1 << 20):
+    """Per chunk of ``q`` (int32 bits): each key's 32 window positions in an
+    open table of ``2**log2`` slots, the slots its probe reads (up to the
+    first slot that holds the key or is EMPTY, else the whole window) and
+    whether it stopped on the key."""
     from repro_torch.core import hashing
-    lens, hits = [], []
-    for i in range(0, q.numel(), chunk):
+    for i in range(0, max(q.numel(), 1), chunk):
         c = q[i:i + chunk]
         pos = hashing.window_positions(hashing.hash_dir(c), log2, 32)
         probed = hashing.bits(table_keys)[pos]
         ok, j = hashing.probe_slot(probed, c)
         at = probed.gather(1, j.long().unsqueeze(1)).squeeze(1)
-        lens.append(torch.where(ok, j + 1, 32))
-        hits.append(ok & (at == c))
+        yield pos, torch.where(ok, j + 1, 32), ok & (at == c)
+
+
+def open_probes(torch, table_keys, log2: int, q):
+    """Per key of ``q``, the slots its probe reads in an open table and
+    whether it stopped on the key (``open_windows``)."""
+    lens, hits = [], []
+    for _, n_read, hit in open_windows(torch, table_keys, log2, q):
+        lens.append(n_read)
+        hits.append(hit)
     return torch.cat(lens), torch.cat(hits)
+
+
+def open_fetches(torch, table_keys, log2: int, q):
+    """Per key of ``q``, the distinct ``FETCH_BYTES`` blocks of an open
+    table's keys that the slots its probe reads lie in, and whether it
+    stopped on the key (``open_windows``)."""
+    shift = (FETCH_BYTES // 4).bit_length() - 1
+    ar = torch.arange(32, device=q.device)
+    blocks, hits = [], []
+    for pos, n_read, hit in open_windows(torch, table_keys, log2, q):
+        b = torch.where(ar < n_read.unsqueeze(1), pos >> shift, -1)
+        b = b.sort(dim=1).values
+        blocks.append((b[:, 0] >= 0).long()
+                      + ((b[:, 1:] != b[:, :-1]) & (b[:, 1:] >= 0)).sum(1))
+        hits.append(hit)
+    return torch.cat(blocks), torch.cat(hits)
 
 
 def open_probed(torch, table_keys, log2: int, q) -> int:
@@ -3861,28 +3986,37 @@ def open_probed(torch, table_keys, log2: int, q) -> int:
 
 def ch_walks(torch, st, q, chunk: int = 1 << 20):
     """Per key of ``q`` (int32 bits), the bucket rows CH's lookup reads
-    (its chain to the first hit, or whole) and whether it hit."""
+    (its chain to the first hit, or whole), whether it hit, and the
+    ``FETCH_BYTES`` blocks of the key rows it must read (each row whole, the
+    hit row up to the hit slot)."""
     from repro_torch.core import hashing
     bk = hashing.bits(st.bucket_keys)
-    rows, hits = [], []
+    S = bk.shape[1]
+    rows, hits, fetches = [], [], []
     for i in range(0, q.numel(), chunk):
         c = q[i:i + chunk]
         cur = st.heads[hashing.dir_slot(hashing.hash_dir(c),
                                         st.table_log2).long()].long()
         n_rows = torch.zeros_like(cur)
+        n_fetch = torch.zeros_like(cur)
         hit = torch.zeros_like(cur, dtype=torch.bool)
         live = cur >= 0
         while bool(live.any()):
             idx = live.nonzero().squeeze(1)
             b = cur[idx]
-            found = (bk[b] == c[idx].unsqueeze(1)).any(1)
+            eq = bk[b] == c[idx].unsqueeze(1)
+            found = eq.any(1)
+            end = 4 * (b * S + torch.where(found, eq.int().argmax(1) + 1, S))
+            n_fetch[idx] += ((end - 1) // FETCH_BYTES
+                             - 4 * b * S // FETCH_BYTES + 1)
             n_rows[idx] += 1
             hit[idx] = found
             cur[idx] = torch.where(found, -1, st.next_bucket[b].long())
             live[idx] = cur[idx] >= 0
         rows.append(n_rows)
         hits.append(hit)
-    return torch.cat(rows), torch.cat(hits)
+        fetches.append(n_fetch)
+    return torch.cat(rows), torch.cat(hits), torch.cat(fetches)
 
 
 def lookup_bytes_baseline(torch, name, st, q) -> int:
@@ -3894,23 +4028,67 @@ def lookup_bytes_baseline(torch, name, st, q) -> int:
     the value on a hit."""
     n = q.numel()
     if name == "ch_lookup":
-        rows, hits = ch_walks(torch, st, q)
+        rows, hits, _ = ch_walks(torch, st, q)
         S = st.bucket_keys.shape[1]
         return (12 * n + 4 * S * int(rows.sum())
                 + 4 * int((rows - hits.long()).sum()) + 4 * int(hits.sum()))
-    if name == "ht_lookup":
-        tables = [(st.keys, int(st.size_log2))]
-    else:
-        tables = [(st.new_keys, int(st.new_log2)),
-                  (st.old_keys, int(st.old_log2))]
-        if int(st.new_count) < int(st.old_count):
-            tables.reverse()
     total = 8 * n
-    for keys, log2 in tables:
+    for keys, log2 in open_tables(name, st):
         lens, hits = open_probes(torch, keys, log2, q)
         total += 4 * int(lens.sum()) + 4 * int(hits.sum())
         q = q[~hits]
     return total
+
+
+def open_tables(name, st) -> list:
+    """The open tables a lookup of ``name`` probes, in order: HT's one;
+    HTI's fuller table first (new when ``new_count >= old_count``)."""
+    if name == "ht_lookup":
+        return [(st.keys, int(st.size_log2))]
+    tables = [(st.new_keys, int(st.new_log2)), (st.old_keys, int(st.old_log2))]
+    if int(st.new_count) < int(st.old_count):
+        tables.reverse()
+    return tables
+
+
+def lookup_sectors_baseline(torch, name, st, q) -> tuple:
+    """The random ``FETCH_BYTES``-byte blocks the lookup of keys ``q`` in
+    the baseline state ``st`` must fetch from the memory, summed over the
+    keys, and per table the keys it finds there.  A block, not a 32-byte
+    sector: on a miss the L2 fetches 64 bytes from the memory (the card's
+    L2 fetch granularity, which ``tools/random_sector_peak.py`` reads; CH
+    ran past a floor counted in sectors).
+    Per key: for the open tables the distinct key blocks its probe reads up
+    to the stopping slot and the value's block on a hit, HTI's second table
+    only for the keys its first misses; for CH the key rows' blocks
+    (``ch_walks``), one block for each link followed and the value's on a
+    hit, and the heads' blocks the batch reads, each once (the heads, 16 MiB
+    at Fig. 7's size, fit in L2; the tables do not).  The keys read and
+    results written are a stream, not counted here (``sector_floor_ms``)."""
+    if name == "ch_lookup":
+        from repro_torch.core import hashing
+        rows, hits, row_fetches = ch_walks(torch, st, q)
+        links = int((rows - hits.long()).sum())
+        shift = (FETCH_BYTES // 4).bit_length() - 1
+        heads = hashing.dir_slot(hashing.hash_dir(q), st.table_log2) >> shift
+        return (int(heads.unique().numel()) + int(row_fetches.sum()) + links
+                + int(hits.sum()), [int(hits.sum())])
+    total, found = 0, []
+    for keys, log2 in open_tables(name, st):
+        blocks, hits = open_fetches(torch, keys, log2, q)
+        total += int(blocks.sum()) + int(hits.sum())
+        found.append(int(hits.sum()))
+        q = q[~hits]
+    return total, found
+
+
+def sector_floor_ms(fetches: int, n: int) -> float:
+    """The least time for a lookup of ``n`` keys whose probes touch
+    ``fetches`` random 64-byte blocks (``lookup_sectors_baseline``): those
+    at the card's measured random-read rate
+    (``RANDOM_READS_PER_S``), and the keys read and results written (8
+    bytes a key) at its memory rate."""
+    return (fetches / RANDOM_READS_PER_S + 8 * n / HBM_BYTES_PER_S) * 1e3
 
 
 def baseline_bytes(torch, name, before, after, keys) -> int:
@@ -4178,11 +4356,20 @@ def phase_fig7(torch, np, args, timer, smi) -> tuple:
             f"resident; max_memory_allocated {peak} B over the table's run "
             f"(the state, its copy-on-write clone, the doubling's work "
             f"space, keys, probes, the plain lookup's chunks); card {smi}")
+        look_bytes = lookup_bytes_baseline(torch, lname, st, probe)
         rows.append(_row(lname,
                          "src/repro_torch/kernels/csrc/baselines_lookup.cu",
                          FIG7_SOURCES[lname], look_launches, ms, plain_ms,
-                         lookup_bytes_baseline(torch, lname, st, probe),
-                         look_err, phase="i"))
+                         look_bytes, look_err, phase="i"))
+        fetches, found = lookup_sectors_baseline(torch, lname, st, probe)
+        floor = sector_floor_ms(fetches, probe.numel())
+        log(f"(i) {lname}: byte bound {look_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
+            f" ms; {fetches} random {FETCH_BYTES}-byte fetches; sector floor {floor:.4f} ms (the "
+            f"fetches at {RANDOM_READS_PER_S / 1e9:.2f} G/s, "
+            f"tools/random_sector_peak.py, and {8 * probe.numel()} B of keys "
+            f"and results at 3.35 TB/s); the kernel at "
+            f"{100 * floor / ms:.1f}% of the floor; hits by table probed "
+            f"{found}")
         del got, gi, present, plain, host_st, want
 
         # the kernel row: the last batch again on the state before it, one

@@ -26,14 +26,23 @@
 // Bound: the card's random reads.  Each key is a short chain of dependent
 // reads (HT: the home slot's sector, then its value's; HTI: that on up to two
 // tables; CH: the head, the 64-byte row, then the value), and the tables
-// (hundreds of MB at Fig. 7's size) do not fit in L2.  One thread a key, the
-// probe read slot by slot: at HT's load of at most 0.35 a probe ends after
-// one or two slots, almost always inside the home slot's 32-byte sector, so
-// the window read whole (a warp on 32 slots) would move up to four times the
-// sectors for nothing; many keys in flight per SM (full occupancy, few
-// registers) hide the latency.  A CH row of S slots is read 64 bytes at a
-// time (four 16-byte loads issued together, then scanned) when S % 4 == 0
-// and the rows are 16-byte aligned, else slot by slot.
+// (hundreds of MB at Fig. 7's size) do not fit in the 50 MB L2, so a probe
+// costs the memory's random reads: tools/random_sector_peak.py measures
+// 34.18 G a second on an H100, each fetching 64 bytes, and one read in
+// flight a thread already reaches that rate (PERF.md §6).
+//   * Open tables: one thread a key, the probe read slot by slot: at HT's
+//     load of at most 0.35 a probe ends after one or two slots, almost
+//     always inside the home slot's sector, and the value is read after its
+//     key is found: two random reads a present key, one an absent key, at
+//     92% of that floor.  Reading the home sector whole, the value sector
+//     with it, or 2 and 4 keys a thread ran no faster (tools/lookup_ab.py).
+//   * CH: the heads (2^T x 4 B, 16 MiB at Fig. 7's size) are read with
+//     normal priority, and the rows, links, probe keys and results
+//     evict-first (__ldcs / __stcs), so that the heads stay in L2: two reads
+//     from the memory a key (its key row, its value) instead of three.  A
+//     row is read 64 bytes at a time (four 16-byte loads issued together,
+//     then scanned) when S % 4 == 0 and the rows are 16-byte aligned, else
+//     slot by slot.
 #include <cstdint>
 
 #include "common.cuh"
@@ -107,54 +116,76 @@ __global__ void __launch_bounds__(kThreads) open_lookup_kernel(OpenArgs a) {
   }
 }
 
-// The first slot of `row` (S slots) equal to `key`, or -1.  VEC: S % 4 == 0
-// and the row 16-byte aligned; 16 slots are loaded together, then scanned
-// (slots past S are filled with a value other than the key).
-template <bool VEC>
-__device__ __forceinline__ int row_find(const uint32_t* __restrict__ row,
-                                        int S, uint32_t key) {
-  if constexpr (VEC) {
-    const uint32_t no = ~key;
-    for (int c = 0; c < S; c += 16) {
-      uint32_t x[16];
+// CH: 16 slots of a key row from slot c, read as four 16-byte loads issued
+// together; slots past S hold a value other than the key.
+__device__ __forceinline__ void load_chunk(const ChArgs& a, size_t row, int c,
+                                           uint32_t key, uint32_t (&x)[16]) {
+  const uint32_t no = ~key;
+  uint4 q[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const uint4 q = c + 4 * u < S
-            ? __ldg(reinterpret_cast<const uint4*>(row + c + 4 * u))
-            : make_uint4(no, no, no, no);
-        x[4 * u] = q.x;
-        x[4 * u + 1] = q.y;
-        x[4 * u + 2] = q.z;
-        x[4 * u + 3] = q.w;
-      }
+  for (int u = 0; u < 4; ++u) {
+    if (c + 4 * u < a.S) {
+      q[u] = __ldcs(reinterpret_cast<const uint4*>(a.bk + row + c) + u);
+    } else {
+      q[u] = make_uint4(no, no, no, no);
+    }
+  }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (x[j] == key) return c + j;
-      }
-    }
-    return -1;
-  } else {
-    for (int j = 0; j < S; ++j) {
-      if (__ldg(row + j) == key) return j;
-    }
-    return -1;
+  for (int u = 0; u < 4; ++u) {
+    x[4 * u] = q[u].x;
+    x[4 * u + 1] = q[u].y;
+    x[4 * u + 2] = q[u].z;
+    x[4 * u + 3] = q[u].w;
   }
 }
 
+// The first slot of the chunk equal to `key`, or -1, by selects.
+__device__ __forceinline__ int chunk_find(const uint32_t (&x)[16],
+                                          uint32_t key) {
+  int hit = -1;
+#pragma unroll
+  for (int j = 15; j >= 0; --j) {
+    if (x[j] == key) hit = j;
+  }
+  return hit;
+}
+
+// The value of slot j of the chunk from slot c of row `row`.
+__device__ __forceinline__ uint32_t chunk_value(const ChArgs& a, size_t row,
+                                                int c, int j) {
+  return __ldcs(a.bv + row + c + j);
+}
+
+// The search of `key` in bucket `cur` from slot c, then down its chain;
+// `links`: buckets of the chain begun before `cur`.  VEC: S % 4 == 0 and the
+// rows 16-byte aligned, 16 slots at a time; else slot by slot.  A chain
+// holds at most C buckets: a longer walk is a corrupt (cyclic) state, which
+// ends as a MISS instead of never.
 template <bool VEC>
-__device__ __forceinline__ uint32_t ch_find(const ChArgs& a, uint32_t key) {
-  int32_t cur = __ldg(a.heads + repro::dir_slot(repro::hash_dir(key), a.T));
-  // a chain holds at most C buckets: a longer walk is a corrupt (cyclic)
-  // state, which ends as a MISS instead of never
-  for (int links = 0; cur >= 0 && links < a.C; ++links) {
+__device__ __forceinline__ uint32_t ch_walk(const ChArgs& a, uint32_t key,
+                                            int32_t cur, int links, int c) {
+  for (; cur >= 0 && links < a.C; ++links, c = 0) {
     const size_t row = static_cast<size_t>(cur) * static_cast<size_t>(a.S);
-    const int j = row_find<VEC>(a.bk + row, a.S, key);
-    if (j >= 0) return __ldg(a.bv + row + j);
-    cur = __ldg(a.next + cur);
+    if constexpr (VEC) {
+      for (; c < a.S; c += 16) {
+        uint32_t x[16];
+        load_chunk(a, row, c, key, x);
+        const int j = chunk_find(x, key);
+        if (j >= 0) return chunk_value(a, row, c, j);
+      }
+    } else {
+      for (; c < a.S; ++c) {
+        if (__ldcs(a.bk + row + c) == key) return __ldcs(a.bv + row + c);
+      }
+    }
+    cur = __ldcs(a.next + cur);
   }
   return repro::kMiss;
 }
 
+// The heads with normal priority (they stay in L2), the rest evict-first.
+// The head bucket's first chunk is searched outside the walk, so that the
+// common case (a hit there) is straight-line code.
 __global__ void __launch_bounds__(kThreads) ch_lookup_kernel(ChArgs a) {
   const bool vec = (a.S & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(a.bk) & 15u) == 0;
@@ -162,8 +193,22 @@ __global__ void __launch_bounds__(kThreads) ch_lookup_kernel(ChArgs a) {
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < a.n; i += stride) {
-    const uint32_t key = __ldg(a.keys + i);
-    a.out[i] = vec ? ch_find<true>(a, key) : ch_find<false>(a, key);
+    const uint32_t key = __ldcs(a.keys + i);
+    const int32_t cur =
+        a.C > 0 ? __ldg(a.heads + repro::dir_slot(repro::hash_dir(key), a.T))
+                : -1;
+    uint32_t val;
+    if (vec) {
+      const size_t row = static_cast<size_t>(cur) * static_cast<size_t>(a.S);
+      uint32_t x[16];
+      if (cur >= 0) load_chunk(a, row, 0, key, x);
+      const int j = cur >= 0 ? chunk_find(x, key) : -1;
+      val = j >= 0 ? chunk_value(a, row, 0, j)
+                   : ch_walk<true>(a, key, cur, 0, 16);
+    } else {
+      val = ch_walk<false>(a, key, cur, 0, 0);
+    }
+    __stcs(a.out + i, val);
   }
 }
 

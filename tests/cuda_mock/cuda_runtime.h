@@ -162,6 +162,15 @@ inline uint4 __ldg(const uint4* p) {
 }
 inline uint4 __ldcg(const uint4* p) { return __ldg(p); }
 template <class T>
+T __ldcs(const T* p) {
+  return *reinterpret_cast<const volatile T*>(p);
+}
+inline uint4 __ldcs(const uint4* p) { return __ldg(p); }
+template <class T>
+void __stcs(T* p, T v) {
+  *reinterpret_cast<volatile T*>(p) = v;
+}
+template <class T>
 T atomicMin(T* p, T v) {
   std::lock_guard<std::mutex> g(mock::mu);
   const T o = *p;

@@ -8,9 +8,11 @@ the JAX package's ``*_lookup_many`` on the states of
 ``chip_smoke.lookup_edge_states``, which reach the lookups' edges (windows
 that wrap, full windows, keys behind an EMPTY slot, HTI mid-migration with
 either table first and a key in both, CH chains of several buckets,
-duplicate appends, values equal to MISS, rows of 5 slots).  Each wrong
-kernel of ``chip_smoke.LOOKUP_WRONG`` (the same source with one line
-replaced) must fail on a state of its table.
+duplicate appends, values equal to MISS, rows of 5, 6, 16 and 20 slots;
+probes from a sector's last slot into the next, hits at home + 8, tables
+under one sector with keys past 2^L, a single probe).  Each wrong kernel of
+``chip_smoke.LOOKUP_WRONG`` (the same source with one line replaced) must
+fail on a state of its table.
 
 It runs the source's own code at a small grid (2 blocks of 64 threads, so
 the grid-stride loops go round); it says nothing of speed, and only a build
@@ -156,12 +158,13 @@ def test_kernel_matches_plain_and_jax(mock_libs, index, tmp_path):
     assert np.unique(STATES[index][3][~take]).size <= 2
 
 
-@pytest.mark.parametrize("table", list(chip_smoke.LOOKUP_WRONG))
-def test_wrong_kernel_fails(mock_libs, table, tmp_path):
+@pytest.mark.parametrize("name", list(chip_smoke.LOOKUP_WRONG))
+def test_wrong_kernel_fails(mock_libs, name, tmp_path):
     """The wrong kernel differs from the plain version on a state of its
     table (and so from the sound kernel, held to it above)."""
+    table = chip_smoke.LOOKUP_WRONG[name][0]
     indices = [i for i, s in enumerate(STATES) if s[1] == table]
-    got = kernel_results(mock_libs[table], indices, tmp_path)
+    got = kernel_results(mock_libs[name], indices, tmp_path)
     differ = {LABELS[i]: int((got[i] != plain(i)).sum()) for i in indices}
     assert sum(differ.values()) > 0, differ
 
