@@ -23,6 +23,12 @@ every lookup exactly as a flat one over the same trace.
     and mixed ones ``sharded_routed_lookup``: a shard whose gate refuses no
     longer demotes the others.
 
+Profiler spans (``runtime/spans.py``) on the caller's thread: ``eh.lookup``
+holding ``eh.partition``, ``eh.gate``, ``eh.operands``, ``eh.launch`` and
+``eh.scatter_back``; ``eh.insert`` holding each shard's ``eh.insert.kernel``
+and ``eh.insert.touched``.  ``lookup_keys`` and ``lookup_slots`` count the
+keys asked of the batched lookup and the slots it launched for them.
+
 ``num_shards=1`` degenerates to the flat index, and ``lookup`` delegates to
 the one :class:`ShortcutEH`.
 
@@ -47,6 +53,7 @@ from repro_torch.runtime.mapper import GLOBAL_VIEW, MaintenanceStats
 from repro_torch.runtime.operand_cache import StackedOperandCache
 from repro_torch.runtime.shard_group import (MapperGroup, pad_batch,
                                              partition_by_shard, shard_order)
+from repro_torch.runtime.spans import span
 
 __all__ = ["ShardedShortcutEH", "partition_by_shard", "shard_of_keys",
            "shard_order"]
@@ -111,6 +118,10 @@ class ShardedShortcutEH:
         self.operands = StackedOperandCache(num_shards)
         for i, s in enumerate(self.shards):
             s.bind_operand_cache(self.operands, i)
+        # keys asked of lookup_batched, and the slots it launched for them
+        # (num_shards x the padded per-shard capacity)
+        self.lookup_keys = 0
+        self.lookup_slots = 0
 
     # -- routing -------------------------------------------------------------
 
@@ -147,17 +158,19 @@ class ShardedShortcutEH:
         """Partition the batch and insert into each owning shard, in input
         order within a shard.  Strictly shard-local: each sub-insert takes
         only its shard's lock, version and queue."""
-        keys = hashing.bits(keys, device=self.device).reshape(-1)
-        values = hashing.bits(values, device=self.device).reshape(-1)
-        if self.num_shards == 1:
-            self.shards[0].insert(keys, values)
-            return
-        sid = shard_of_keys(keys, self.shard_bits)
-        order, counts, starts = shard_order(sid, self.num_shards)
-        for s, (c, b) in enumerate(zip(counts.tolist(), starts.tolist())):
-            if c:
-                idx = order[b:b + c]
-                self.shards[s].insert(keys[idx], values[idx])
+        with span("eh.insert"):
+            keys = hashing.bits(keys, device=self.device).reshape(-1)
+            values = hashing.bits(values, device=self.device).reshape(-1)
+            if self.num_shards == 1:
+                self.shards[0]._insert(keys, values)
+                return
+            sid = shard_of_keys(keys, self.shard_bits)
+            order, counts, starts = shard_order(sid, self.num_shards)
+            for s, (c, b) in enumerate(zip(counts.tolist(),
+                                           starts.tolist())):
+                if c:
+                    idx = order[b:b + c]
+                    self.shards[s]._insert(keys[idx], values[idx])
 
     def lookup(self, keys) -> torch.Tensor:
         """Routed lookup in input order: each shard takes its shortcut
@@ -186,41 +199,52 @@ class ShardedShortcutEH:
         if keys.numel() == 0:
             # no padding, no operand refresh, no launch, no route counters
             return self._empty()
-        padded, sid, order, rank, counts = self._partition(keys)
-        # Gate every shard FIRST (each policy decides exactly once), then
-        # read the publish epochs, then the states: replays publish into
-        # the stack BEFORE bumping view_epoch and BEFORE sc_version, so any
-        # view a gate certifies is already resident at a covering epoch and
-        # get("eh_view", epochs) is a pure epoch check.  The traditional
-        # family stays pull-mode, built from state snapshots read AFTER the
-        # epochs (an epoch can only under-describe its snapshot).
-        gates = [s.mapper.gate(s.avg_fan_in(), [GLOBAL_VIEW])
-                 for s in self.shards]
-        view_epochs = [s.view_epoch for s in self.shards]
-        state_epochs = [s.state_epoch for s in self.shards]
-        states = [s.state for s in self.shards]
-        pub = self.operands.published("eh_view")
-        shortcut_ok = [g and pub is not None and pub[i]
-                       for i, g in enumerate(gates)]
-        involved = [s for s, c in enumerate(counts) if c]
-        for s in involved:
-            self.group.count_route(shortcut_ok[s], shard=s)
-        n_sc = sum(1 for s in involved if shortcut_ok[s])
-        if n_sc:
-            view_ops = self.operands.get("eh_view", view_epochs)
-        if n_sc < len(involved):
-            trad_ops = self.operands.get(
-                "eh_trad", state_epochs, _trad_parts(states))
-        if n_sc == len(involved):
-            res = sharded_shortcut_lookup(padded, *view_ops, tile=tile)
-        elif n_sc == 0:
-            res = sharded_eh_lookup(padded, *trad_ops, tile=tile)
-        else:
-            flags = torch.tensor([0 if ok else 1 for ok in shortcut_ok],
-                                 dtype=torch.int32, device=self.device)
-            res = sharded_routed_lookup(padded, *trad_ops, *view_ops, flags,
-                                        tile=tile)
-        return self._scatter_back(res, sid, order, rank)
+        with span("eh.lookup"):
+            with span("eh.partition"):
+                padded, sid, order, rank, counts = self._partition(keys)
+            self.lookup_keys += keys.numel()
+            self.lookup_slots += padded.numel()
+            # Gate every shard FIRST (each policy decides exactly once),
+            # then read the publish epochs, then the states: replays publish
+            # into the stack BEFORE bumping view_epoch and BEFORE
+            # sc_version, so any view a gate certifies is already resident
+            # at a covering epoch and get("eh_view", epochs) is a pure epoch
+            # check.  The traditional family stays pull-mode, built from
+            # state snapshots read AFTER the epochs (an epoch can only
+            # under-describe its snapshot).
+            with span("eh.gate"):
+                gates = [s.mapper.gate(s.avg_fan_in(), [GLOBAL_VIEW])
+                         for s in self.shards]
+            view_epochs = [s.view_epoch for s in self.shards]
+            state_epochs = [s.state_epoch for s in self.shards]
+            states = [s.state for s in self.shards]
+            pub = self.operands.published("eh_view")
+            shortcut_ok = [g and pub is not None and pub[i]
+                           for i, g in enumerate(gates)]
+            involved = [s for s, c in enumerate(counts) if c]
+            for s in involved:
+                self.group.count_route(shortcut_ok[s], shard=s)
+            n_sc = sum(1 for s in involved if shortcut_ok[s])
+            with span("eh.operands"):
+                if n_sc:
+                    view_ops = self.operands.get("eh_view", view_epochs)
+                if n_sc < len(involved):
+                    trad_ops = self.operands.get(
+                        "eh_trad", state_epochs, _trad_parts(states))
+            with span("eh.launch"):
+                if n_sc == len(involved):
+                    res = sharded_shortcut_lookup(padded, *view_ops,
+                                                  tile=tile)
+                elif n_sc == 0:
+                    res = sharded_eh_lookup(padded, *trad_ops, tile=tile)
+                else:
+                    flags = torch.tensor(
+                        [0 if ok else 1 for ok in shortcut_ok],
+                        dtype=torch.int32, device=self.device)
+                    res = sharded_routed_lookup(padded, *trad_ops,
+                                                *view_ops, flags, tile=tile)
+            with span("eh.scatter_back"):
+                return self._scatter_back(res, sid, order, rank)
 
     # -- aggregated bookkeeping ----------------------------------------------
 

@@ -16,6 +16,10 @@ maintained shortcut directory (paper §4.1; twin of the standalone mode of
   * Lookups route through the shortcut only when it is in sync *and* the
     average fan-in is at most ``fan_in_threshold`` (paper: 8); both paths
     are the lookup kernel on CUDA (traditional and shortcut mode).
+  * Profiler spans (``runtime/spans.py``) on the caller's thread: ``eh.lookup``
+    holding ``eh.gate`` and ``eh.launch``; ``eh.insert`` holding
+    ``eh.insert.kernel`` (the kernel and the state's copy-on-write clones)
+    and ``eh.insert.touched`` (the touched buckets read to the host).
 
 As in the JAX package the view is a replica, not shared pages, so every
 insert batch enqueues maintenance for the touched buckets.  Inserts and
@@ -41,6 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.eh_lookup import stacked_shortcut_lookup
 from repro_torch.runtime.mapper import (GLOBAL_VIEW, FanInRouting,
                                         MaintenanceStats, ShortcutMapper)
+from repro_torch.runtime.spans import span
 
 __all__ = ["ShortcutEH", "MaintenanceStats"]
 
@@ -211,11 +216,16 @@ class ShortcutEH:
     def insert(self, keys, values) -> None:
         """Synchronous insert into the traditional index + enqueue
         maintenance (the paper's main-thread behaviour)."""
+        with span("eh.insert"):
+            self._insert(keys, values)
+
+    def _insert(self, keys, values) -> None:
         keys = hashing.bits(keys, device=self.device)
         values = hashing.bits(values, device=self.device)
         old_g = int(self.state.global_depth)
         with self.mapper.lock:
-            self.state = eh.eh_insert_many(self.state, keys, values)
+            with span("eh.insert.kernel"):
+                self.state = eh.eh_insert_many(self.state, keys, values)
             new_g = int(self.state.global_depth)
             versions = self.mapper.record([GLOBAL_VIEW])
             if self._cache is not None:
@@ -232,31 +242,38 @@ class ShortcutEH:
             # doubling: the runtime pops outdated updates before the create
             self.mapper.submit_create([GLOBAL_VIEW], versions)
         else:
-            slots = eh.dir_slot(eh.hash_dir(keys), new_g).long()
-            touched = torch.unique(self.state.directory[slots])
+            with span("eh.insert.touched"):
+                slots = eh.dir_slot(eh.hash_dir(keys), new_g).long()
+                touched = torch.unique(self.state.directory[slots])
+                touched = touched.cpu().numpy()
             self.mapper.submit_update([GLOBAL_VIEW], versions,
-                                      payload=touched.cpu().numpy())
+                                      payload=touched)
 
     def lookup(self, keys) -> torch.Tensor:
         """Route through the shortcut when in sync and fan-in permits."""
-        keys = hashing.bits(keys, device=self.device)
-        # gate FIRST, snapshot after: a replay landing in between publishes
-        # a strictly newer view, which the gate's verdict still covers;
-        # snapshotting first would let the gate certify a stale tuple
-        use = self.mapper.gate(self.avg_fan_in(), [GLOBAL_VIEW])
-        view = self.view_snapshot()   # single read: the swap is atomic
-        use = use and view is not None
-        self.mapper.count_route(use)
-        if use:
-            if self._cache is not None:
-                # straight off the stack: the kernel reads this shard's
-                # block and its view log2 in place, no slice is copied
-                ops = self._cache.handle(self._vfam)
-                return stacked_shortcut_lookup(keys, *ops, self._shard)
-            # the tuple's own view_log2, never the live global_depth: a
-            # doubling after the snapshot would index past the view
-            return eh.shortcut_lookup_many(view[0], view[1], view[2], keys)
-        return eh.eh_lookup_many(self.state, keys)
+        with span("eh.lookup"):
+            keys = hashing.bits(keys, device=self.device)
+            # gate FIRST, snapshot after: a replay landing in between
+            # publishes a strictly newer view, which the gate's verdict
+            # still covers; snapshotting first would let the gate certify
+            # a stale tuple
+            with span("eh.gate"):
+                use = self.mapper.gate(self.avg_fan_in(), [GLOBAL_VIEW])
+            view = self.view_snapshot()   # single read: the swap is atomic
+            use = use and view is not None
+            self.mapper.count_route(use)
+            with span("eh.launch"):
+                if not use:
+                    return eh.eh_lookup_many(self.state, keys)
+                if self._cache is not None:
+                    # straight off the stack: the kernel reads this shard's
+                    # block and its view log2 in place, no slice is copied
+                    ops = self._cache.handle(self._vfam)
+                    return stacked_shortcut_lookup(keys, *ops, self._shard)
+                # the tuple's own view_log2, never the live global_depth: a
+                # doubling after the snapshot would index past the view
+                return eh.shortcut_lookup_many(view[0], view[1], view[2],
+                                               keys)
 
     def use_shortcut(self) -> bool:
         return (self.view_snapshot() is not None

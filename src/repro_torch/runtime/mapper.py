@@ -13,6 +13,11 @@ mapper thread that polls a FIFO of maintenance requests —
   * the view is eagerly *populated* before its version is published: here
     a CUDA event recorded on the current stream after the replays, and
     waited for (a no-op for CPU tensors);
+  * the view's lag: each request is stamped on the host clock when it is
+    submitted, and the publish that covers it adds its age to
+    :class:`MaintenanceStats` (``published``, ``lag_seconds``); the replays
+    and the population run inside the profiler spans ``mapper.replay`` and
+    ``mapper.populate`` (``runtime/spans.py``);
   * reads route through the shortcut only when it is **in sync** (version
     gate) *and* a structure-specific cost statistic says the shortcut pays
     (fan-in for EH §3.2) — a pluggable :class:`RoutingPolicy`;
@@ -37,10 +42,12 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable, Iterable, Optional, Sequence
 
 import torch
+
+from repro_torch.runtime.spans import span
 
 #: View key for clients that maintain a single, global shortcut view.
 GLOBAL_VIEW: Hashable = "__global__"
@@ -54,10 +61,15 @@ class Request:
     """One maintenance request in the FIFO.
 
     ``versions`` maps each view key the request touches to the
-    ``trad_version`` that replaying it brings the shortcut to."""
+    ``trad_version`` that replaying it brings the shortcut to.  ``stamp``
+    is the host time (``time.perf_counter``) of its submission;
+    ``absorbed`` holds the stamps of the requests a create made redundant
+    at enqueue, whose publish is this request's."""
     kind: str                      # CREATE | UPDATE
     versions: dict                 # view key -> target trad_version
     payload: Any = None            # client data (touched buckets, rows, ...)
+    stamp: float = field(default_factory=time.perf_counter)
+    absorbed: tuple = ()
 
 
 @dataclass
@@ -66,8 +78,8 @@ class MaintenanceStats:
     updates: int = 0               # update replay batches
     collapsed: int = 0             # update requests made redundant by creates
     slots_remapped: int = 0        # client-reported rewired slots/rows
-    replay_seconds: float = 0.0
-    populate_seconds: float = 0.0
+    published: int = 0             # requests whose versions were published
+    lag_seconds: float = 0.0       # summed submit-to-publish host time
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +263,12 @@ class ShortcutMapper:
         :meth:`_process` catches any that race past this."""
         req = Request(CREATE, dict(zip(keys, versions)), payload)
         pending = self._drain()
-        kept = [r for r in pending if not _subsumed(r, req.versions)]
-        self.stats.collapsed += len(pending) - len(kept)
+        kept, dropped = [], []
+        for r in pending:
+            (dropped if _subsumed(r, req.versions) else kept).append(r)
+        self.stats.collapsed += len(dropped)
+        req.absorbed = tuple(s for r in dropped
+                             for s in (r.stamp, *r.absorbed))
         for r in kept:
             self._queue.put(r)
         self._queue.put(req)
@@ -351,7 +367,9 @@ class ShortcutMapper:
            :attr:`next_view_epoch`;
         3. eagerly populate the view arrays (§3.1);
         4. bump ``view_epoch`` to the epoch the replays published at, then
-           publish ``sc_version`` monotonically.
+           publish ``sc_version`` monotonically, and count every request of
+           the batch (collapsed ones and those absorbed at enqueue too) as
+           published, with its age.
         """
         with self.lock:
             snap = self._snapshot()
@@ -368,34 +386,35 @@ class ShortcutMapper:
                 continue
             kept.append(r)
 
-        t0 = time.perf_counter()
-        i = 0
-        while i < len(kept):
-            j = i
-            while j < len(kept) and kept[j].kind == kept[i].kind:
-                j += 1
-            run = kept[i:j]
-            if kept[i].kind == CREATE:
-                self._replay_create(snap, run)
-                self.stats.creates += 1
-            else:
-                self._replay_update(snap, run)
-                self.stats.updates += 1
-            i = j
-        t1 = time.perf_counter()
-        _populate(self._view_arrays())
-        t2 = time.perf_counter()
-        self.stats.replay_seconds += t1 - t0
-        self.stats.populate_seconds += t2 - t1
+        with span("mapper.replay"):
+            i = 0
+            while i < len(kept):
+                j = i
+                while j < len(kept) and kept[j].kind == kept[i].kind:
+                    j += 1
+                run = kept[i:j]
+                if kept[i].kind == CREATE:
+                    self._replay_create(snap, run)
+                    self.stats.creates += 1
+                else:
+                    self._replay_update(snap, run)
+                    self.stats.updates += 1
+                i = j
+        with span("mapper.populate"):
+            _populate(self._view_arrays())
 
         # catch up to next_view_epoch BEFORE publishing sc versions: once a
         # gate certifies these versions, the stacked cache already holds
         # the published operands at a covering epoch
         self.view_epoch += 1
 
+        now = time.perf_counter()
         for r in batch:
             for k, v in r.versions.items():
                 self._sc[k] = max(self._sc.get(k, -1), v)
+            stamps = (r.stamp, *r.absorbed)
+            self.stats.published += len(stamps)
+            self.stats.lag_seconds += sum(now - s for s in stamps)
 
     def __enter__(self):
         return self
