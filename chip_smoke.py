@@ -116,7 +116,11 @@ Phases, each of which raises on failure (exit code 1):
       65536, num_shards=4)`` takes the same keys; ``lookup_batched`` takes
       its all-traditional arm before ``pump()``, its all-shortcut arm
       after, and its mixed arm (one routed launch) after a batch to shards
-      0 and 1 only; per-shard ``lookup`` takes the stacked kernel; then an
+      0 and 1 only, each a flat-key launch (the keys in input order, each
+      finding its shard in the kernel); the three flat-key arms bit for
+      bit against the padded kernels plus the scatter-back, and with each
+      key's shard from one bit too few, wrong; per-shard ``lookup`` takes
+      the stacked kernel; then an
       async phase of 2**22 keys races lookups against the copy-on-write
       publishes; launch counts are read around this phase, and then the
       same times as (e) for it and its two kernels, the seconds of each
@@ -292,7 +296,7 @@ dropped before (f), the sharded one before (g), the KV layer before (h),
 each table of (i) before the next and each model of (j) before the next,
 so each path reports its own peak memory; (l) frees each of its parts
 before the next.  The last three lines of
-standard output are the ``{"kernels": [...]}`` JSON (sixteen kernels), the
+standard output are the ``{"kernels": [...]}`` JSON (nineteen kernels), the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without CUDA,
 or without ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -2304,48 +2308,137 @@ def phase_sharded(torch, np, timer, data) -> dict:
     return res
 
 
+def check_flat_keys(torch, idx, probe, trad, view, flags) -> None:
+    """(f): the stacked lookups' flat-key mode (``lookup_batched``'s launch:
+    the keys in input order, each finding its shard in the kernel) on
+    every arm, bit for bit against the padded kernels on the same keys
+    partitioned by shard and scattered back; the routed arm with the
+    shards ``flags`` marks traditional.  The same launches with each key's
+    shard taken from one bit too few of its hash must differ."""
+    from repro_torch.kernels import eh_lookup as lk
+    padded, sid, order, rank, _ = idx._partition(probe)
+    arms = {"shortcut": lambda k, **kw: lk.sharded_shortcut_lookup(
+                k, *view, **kw),
+            "traditional": lambda k, **kw: lk.sharded_eh_lookup(
+                k, *trad, **kw),
+            "routed": lambda k, **kw: lk.sharded_routed_lookup(
+                k, *trad, *view, flags, **kw)}
+    for name, fn in arms.items():
+        want = idx._scatter_back(fn(padded), sid, order, rank)
+        want = want.view(torch.int32)
+        got = fn(probe, shard_bits=idx.shard_bits).view(torch.int32)
+        assert torch.equal(got, want), \
+            f"(f) flat-key {name} arm differs from padded + scatter-back"
+        wrong = fn(probe, shard_bits=idx.shard_bits - 1).view(torch.int32)
+        n_wrong = int((wrong != want).sum())
+        assert n_wrong > 0, f"(f) flat-key {name} arm: one bit short passed"
+        log(f"(f) flat-key {name} arm: {probe.numel()} keys equal to the "
+            f"padded arm + scatter-back; one bit short: {n_wrong} wrong")
+
+
 def measure_sharded(torch, np, res, timer, rows) -> None:
-    """The sharded path's two kernels at its shapes (the mixed arm's routed
-    launch, shard 0's stacked launch), as ``measure_kernels`` does for the
-    flat path; and the time of one copy-on-write publish."""
+    """The sharded path's kernels at its shapes, as ``measure_kernels`` does
+    for the flat path: ``lookup_batched``'s flat-key launch of each arm on
+    the mixed probe (the main path's), the padded routed launch (the JAX
+    package's layout) and shard 0's stacked launch; and the time of one
+    copy-on-write publish.  It runs after (f)'s launches were counted, so
+    its own launches, the checks' included, stay out of the kernels line."""
+    from repro_torch.core.hashing import shard_of_keys
     from repro_torch.kernels import eh_lookup as lk
     from repro_torch.kernels import ref
+    idx, probe = res["idx"], res["mixed_probe"]
+    bits = idx.shard_bits
     args = res["routed_args"]
+    keys, dirs, bks, bvs, gds, vks, vvs, vls, flags = args
+    trad, view = (dirs, bks, bvs, gds), (vks, vvs, vls)
+    check_flat_keys(torch, idx, probe, trad, view, flags)
+
+    # the flat-key rows: (f) launches the three sharded wrappers only from
+    # lookup_batched, whose launches all take flat keys, so (f)'s counts
+    # under the wrappers' names are the flat kernels' own
+    sid = shard_of_keys(probe, bits)
+    of = [probe[sid == s] for s in range(len(dirs))]
+
+    def trad_ref(s, ks):
+        return ref.lookup_ref(ks, dirs[s], bks[s], bvs[s], gds[s])
+
+    def view_ref(s, ks):
+        return ref.lookup_ref(ks, None, vks[s], vvs[s], vls[s])
+
+    def trad_bytes(s):
+        return lookup_bytes(of[s], dirs[s], bks[s], bvs[s], gds[s])
+
+    def view_bytes(s):
+        return lookup_bytes(of[s], None, vks[s], vvs[s], vls[s])
+
+    routed = flags.tolist()
+    flat = (
+        ("flat_eh_lookup", "eh_lookup", "src/repro/kernels/eh_lookup.py:171",
+         lambda: lk.sharded_eh_lookup(probe, *trad, shard_bits=bits),
+         trad_ref, trad_bytes),
+        ("flat_shortcut_lookup", "shortcut_lookup",
+         "src/repro/kernels/eh_lookup.py:171",
+         lambda: lk.sharded_shortcut_lookup(probe, *view, shard_bits=bits),
+         view_ref, view_bytes),
+        ("flat_routed_lookup", "sharded_routed_lookup",
+         "src/repro/kernels/eh_lookup.py:334",
+         lambda: lk.sharded_routed_lookup(probe, *trad, *view, flags,
+                                          shard_bits=bits),
+         lambda s, ks: (trad_ref if routed[s] else view_ref)(s, ks),
+         lambda s: (trad_bytes if routed[s] else view_bytes)(s)))
+    for name, counted, replaces, fn, plain, bytes_of in flat:
+        ms, got = timer(fn)
+        plain_ms, want = timer(lambda: ref.flat_keys_ref(probe, bits, plain),
+                               reps=1, warmup=0)
+        rows.append(_row(name, "src/repro_torch/kernels/csrc/eh_lookup.cu",
+                         replaces,
+                         {name: res["launches"].get(counted, 0)}, ms,
+                         plain_ms, sum(bytes_of(s) for s in range(len(of))),
+                         err(got, want)))
+
+    # the padded layout's kernels, which the main path no longer launches
+    # (launches 0): the hand-written counterparts of the JAX package's
     ms, got = timer(lambda: lk.sharded_routed_lookup(*args))
     plain_ms, want = timer(lambda: ref.routed_lookup_ref(*args), reps=1,
                            warmup=0)
-    keys, dirs, bks, bvs, gds, vks, vvs, vls, flags = args
     moved = sum(
         lookup_bytes(keys[s], dirs[s], bks[s], bvs[s], gds[s]) if f else
         lookup_bytes(keys[s], None, vks[s], vvs[s], vls[s])
-        for s, f in enumerate(flags.tolist()))
+        for s, f in enumerate(routed))
     rows.append(_row("sharded_routed_lookup",
                      "src/repro_torch/kernels/csrc/eh_lookup.cu",
                      "src/repro/kernels/eh_lookup.py:334",
-                     res["launches"], ms, plain_ms, moved, err(got, want)))
+                     {}, ms, plain_ms, moved, err(got, want)))
     args = res["stacked_args"]
     ms, got = timer(lambda: lk.stacked_shortcut_lookup(*args))
     plain_ms, want = timer(lambda: ref.stacked_shortcut_lookup_ref(*args),
                            reps=1, warmup=0)
-    keys, vks, vvs, vls, s = args
+    skeys, svks, svvs, svls, s = args
     rows.append(_row("stacked_shortcut_lookup",
                      "src/repro_torch/kernels/csrc/eh_lookup.cu",
                      "src/repro/kernels/eh_lookup.py:279",
                      res["launches"], ms, plain_ms,
-                     lookup_bytes(keys, None, vks[s], vvs[s], vls[s]),
+                     lookup_bytes(skeys, None, svks[s], svvs[s], svls[s]),
                      err(got, want)))
 
-    # where an arm's time goes: its kernel alone, and the partition (one
-    # stable sort, one host read of the counts, the pad)
-    keys, dirs, bks, bvs, gds, vks, vvs, vls, _ = res["routed_args"]
-    trad_ms, _ = timer(lambda: lk.sharded_eh_lookup(keys, dirs, bks, bvs,
-                                                    gds))
-    sc_ms, _ = timer(lambda: lk.sharded_shortcut_lookup(keys, vks, vvs, vls))
-    part_ms, _ = timer(lambda: res["idx"]._partition(res["mixed_probe"]))
-    res["breakdown"] = (trad_ms, sc_ms, part_ms)
-    log(f"(e) on the mixed probe's layout {tuple(keys.shape)}: "
+    # where an arm's time goes on the padded layout: its kernel alone, and
+    # the partition that the layout needs (one stable sort, one host read
+    # of the counts, the pad); and the flat kernels on the same keys in
+    # shard order, which the padded layout's locality across the stack has
+    trad_ms, _ = timer(lambda: lk.sharded_eh_lookup(keys, *trad))
+    sc_ms, _ = timer(lambda: lk.sharded_shortcut_lookup(keys, *view))
+    part_ms, _ = timer(lambda: idx._partition(probe))
+    by_shard = probe[torch.argsort(sid, stable=True)]
+    sorted_trad_ms, _ = timer(lambda: lk.sharded_eh_lookup(
+        by_shard, *trad, shard_bits=bits))
+    sorted_sc_ms, _ = timer(lambda: lk.sharded_shortcut_lookup(
+        by_shard, *view, shard_bits=bits))
+    log(f"(e) on the mixed probe's padded layout {tuple(keys.shape)}: "
         f"sharded_eh_lookup {trad_ms:.4f} ms, sharded_shortcut_lookup "
-        f"{sc_ms:.4f} ms, partition {part_ms:.4f} ms")
+        f"{sc_ms:.4f} ms, partition {part_ms:.4f} ms; flat keys in shard "
+        f"order: flat_eh_lookup {sorted_trad_ms:.4f} ms, "
+        f"flat_shortcut_lookup {sorted_sc_ms:.4f} ms")
+    del by_shard
 
     # one publish of shard 0's own view into the eh_view stack: the clone
     # of each stacked part plus the slice write (same data, same epoch)

@@ -113,6 +113,15 @@ def hash_bucket(key) -> torch.Tensor:
     return k ^ (k >> 16)
 
 
+def shard_of_keys(keys, shard_bits: int) -> torch.Tensor:
+    """Shard index per key (int64, on the keys' device): the top
+    ``shard_bits`` of the directory hash (0 bits: shard 0)."""
+    k = bits(keys)
+    if shard_bits == 0:
+        return torch.zeros(k.shape, dtype=torch.int64, device=k.device)
+    return hash_dir(k) >> (32 - shard_bits)
+
+
 def hash_dir_host(key: int) -> int:
     """Host-side twin of :func:`hash_dir` on a Python int."""
     return (int(key) * HASH_C1) & MASK32

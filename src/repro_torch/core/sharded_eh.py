@@ -12,10 +12,11 @@ every lookup exactly as a flat one over the same trace.
   * **Shard-local maintenance**: splits, doublings, replays, version gates
     and route decisions touch one shard's mapper.
   * **One-launch batched lookup** (:meth:`ShardedShortcutEH.lookup_batched`):
-    a key batch is bucketized per shard by one stable sort on the device,
-    padded to a per-shard capacity from a bounded set, resolved by one
-    kernel launch over all shards, and scattered back to input order.  The
-    stacked operands live in a :class:`StackedOperandCache`: replays publish
+    a key batch goes to one kernel launch over all shards as it comes, in
+    input order: each key finds its shard inside the kernel (the stacked
+    lookups' flat-key mode), so the batch is neither sorted, padded nor
+    scattered back, and the host reads nothing of it.  The stacked
+    operands live in a :class:`StackedOperandCache`: replays publish
     each shard's view slice into the "eh_view" stack before its
     ``sc_version`` moves, and the "eh_trad" stack is built by the first
     traditional lookup and kept warm by inserts.  All-shortcut batches take
@@ -23,11 +24,14 @@ every lookup exactly as a flat one over the same trace.
     and mixed ones ``sharded_routed_lookup``: a shard whose gate refuses no
     longer demotes the others.
 
+The per-shard :meth:`ShardedShortcutEH.lookup` and the sharded ``insert``
+still bucketize a batch per shard by one stable sort on the device.
+
 Profiler spans (``runtime/spans.py``) on the caller's thread: ``eh.lookup``
-holding ``eh.partition``, ``eh.gate``, ``eh.operands``, ``eh.launch`` and
-``eh.scatter_back``; ``eh.insert`` holding each shard's ``eh.insert.kernel``
-and ``eh.insert.touched``.  ``lookup_keys`` and ``lookup_slots`` count the
-keys asked of the batched lookup and the slots it launched for them.
+holding ``eh.gate``, ``eh.operands`` and ``eh.launch``; ``eh.insert``
+holding each shard's ``eh.insert.kernel`` and ``eh.insert.touched``.
+``lookup_keys`` and ``lookup_slots`` count the keys asked of the batched
+lookup and the slots it launched for them (one a key).
 
 ``num_shards=1`` degenerates to the flat index, and ``lookup`` delegates to
 the one :class:`ShortcutEH`.
@@ -44,6 +48,7 @@ import torch
 
 from repro_torch.core import extendible_hashing as eh
 from repro_torch.core import hashing
+from repro_torch.core.hashing import shard_of_keys
 from repro_torch.core.shortcut_eh import ShortcutEH
 from repro_torch.device import resolve_device
 from repro_torch.kernels.eh_lookup import (sharded_eh_lookup,
@@ -57,15 +62,6 @@ from repro_torch.runtime.spans import span
 
 __all__ = ["ShardedShortcutEH", "partition_by_shard", "shard_of_keys",
            "shard_order"]
-
-
-def shard_of_keys(keys, shard_bits: int) -> torch.Tensor:
-    """Shard index per key (int64, on the keys' device): the top
-    ``shard_bits`` of the directory hash."""
-    k = hashing.bits(keys)
-    if shard_bits == 0:
-        return torch.zeros(k.shape, dtype=torch.int64, device=k.device)
-    return hashing.hash_dir(k) >> (32 - shard_bits)
 
 
 def _trad_parts(states):
@@ -119,7 +115,7 @@ class ShardedShortcutEH:
         for i, s in enumerate(self.shards):
             s.bind_operand_cache(self.operands, i)
         # keys asked of lookup_batched, and the slots it launched for them
-        # (num_shards x the padded per-shard capacity)
+        # (one a key: the kernel takes the keys unpadded)
         self.lookup_keys = 0
         self.lookup_slots = 0
 
@@ -192,18 +188,22 @@ class ShardedShortcutEH:
         """Fused cross-shard lookup: ONE kernel launch for all shards, fed
         from the stacked operand cache.  Returns values in input order.
 
-        Each shard routes independently (its own gate, its own view): an
-        all-shortcut batch takes the shortcut kernel, an all-traditional one
-        the traditional kernel, a mixed one the per-shard routed kernel."""
+        The keys go to the kernel as they come: each lane group finds its
+        key's shard (the top ``shard_bits`` of the directory hash) and
+        writes the value at the key's index, so nothing is sorted, padded,
+        counted on the host or scattered back.  Each shard routes
+        independently (its own gate, its own view): an all-shortcut batch
+        takes the shortcut kernel, an all-traditional one the traditional
+        kernel, a mixed one the per-shard routed kernel.  Which shards a
+        batch touches is not read, so every shard counts as involved in a
+        non-empty batch: one route count each."""
         keys = hashing.bits(keys, device=self.device).reshape(-1)
         if keys.numel() == 0:
-            # no padding, no operand refresh, no launch, no route counters
+            # no operand refresh, no launch, no route counters
             return self._empty()
         with span("eh.lookup"):
-            with span("eh.partition"):
-                padded, sid, order, rank, counts = self._partition(keys)
             self.lookup_keys += keys.numel()
-            self.lookup_slots += padded.numel()
+            self.lookup_slots += keys.numel()
             # Gate every shard FIRST (each policy decides exactly once),
             # then read the publish epochs, then the states: replays publish
             # into the stack BEFORE bumping view_epoch and BEFORE
@@ -219,32 +219,30 @@ class ShardedShortcutEH:
             state_epochs = [s.state_epoch for s in self.shards]
             states = [s.state for s in self.shards]
             pub = self.operands.published("eh_view")
-            shortcut_ok = [g and pub is not None and pub[i]
+            shortcut_ok = [bool(g and pub is not None and pub[i])
                            for i, g in enumerate(gates)]
-            involved = [s for s, c in enumerate(counts) if c]
-            for s in involved:
-                self.group.count_route(shortcut_ok[s], shard=s)
-            n_sc = sum(1 for s in involved if shortcut_ok[s])
+            for s, ok in enumerate(shortcut_ok):
+                self.group.count_route(ok, shard=s)
+            n_sc = sum(shortcut_ok)
             with span("eh.operands"):
                 if n_sc:
                     view_ops = self.operands.get("eh_view", view_epochs)
-                if n_sc < len(involved):
+                if n_sc < self.num_shards:
                     trad_ops = self.operands.get(
                         "eh_trad", state_epochs, _trad_parts(states))
             with span("eh.launch"):
-                if n_sc == len(involved):
-                    res = sharded_shortcut_lookup(padded, *view_ops,
-                                                  tile=tile)
-                elif n_sc == 0:
-                    res = sharded_eh_lookup(padded, *trad_ops, tile=tile)
-                else:
-                    flags = torch.tensor(
-                        [0 if ok else 1 for ok in shortcut_ok],
-                        dtype=torch.int32, device=self.device)
-                    res = sharded_routed_lookup(padded, *trad_ops,
-                                                *view_ops, flags, tile=tile)
-            with span("eh.scatter_back"):
-                return self._scatter_back(res, sid, order, rank)
+                bits = self.shard_bits
+                if n_sc == self.num_shards:
+                    return sharded_shortcut_lookup(keys, *view_ops, tile=tile,
+                                                   shard_bits=bits)
+                if n_sc == 0:
+                    return sharded_eh_lookup(keys, *trad_ops, tile=tile,
+                                             shard_bits=bits)
+                flags = torch.tensor([0 if ok else 1 for ok in shortcut_ok],
+                                     dtype=torch.int32, device=self.device)
+                return sharded_routed_lookup(keys, *trad_ops, *view_ops,
+                                             flags, tile=tile,
+                                             shard_bits=bits)
 
     # -- aggregated bookkeeping ----------------------------------------------
 

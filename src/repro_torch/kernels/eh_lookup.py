@@ -22,6 +22,13 @@ after the TPU module's ``_resolve_tile``): four lanes a key, several
 keys in flight per warp.  On a CUDA tensor every wrapper
 launches its kernel; on a CPU tensor it runs the plain version
 (``ref.py``).
+
+The three sharded wrappers also take the keys flat: one (K,) batch in
+input order with ``shard_bits=``, each key in the shard of its top
+``shard_bits`` directory-hash bits (:func:`hashing.shard_of_keys`).  The
+kernel finds each key's shard itself (``flat_eh_lookup_kernel``,
+``flat_routed_lookup_kernel``: a 1-D grid over key tiles) and returns the
+values in input order, so the caller neither sorts, pads nor scatters.
 """
 from __future__ import annotations
 
@@ -39,6 +46,10 @@ _SIGNATURES = {
     "stacked_lookup_launch": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "routed_lookup_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _P],
+    "eh_lookup_flat_launch": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P],
+    "routed_lookup_flat_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _P],
 }
 #: most shards one launch takes (the shard is the grid's y dimension)
 MAX_SHARDS = 65535
@@ -63,15 +74,38 @@ def _per_shard(x, N: int, dev, what: str) -> torch.Tensor:
     return t.reshape(N)
 
 
+def _keys(keys, dev, shard_bits) -> torch.Tensor:
+    """The keys' bits on ``dev``: (N, K) padded per shard when
+    ``shard_bits`` is None, else one flat (K,) batch."""
+    k = hashing.bits(keys, device=dev).contiguous()
+    if shard_bits is None and k.dim() != 2:
+        raise ValueError(f"keys must be (N, K), got {tuple(k.shape)}")
+    if shard_bits is not None and k.dim() != 1:
+        raise ValueError(f"flat keys must be (K,), got {tuple(k.shape)}")
+    return k
+
+
+def _check_flat(shard_bits: int, N: int, *rows: int) -> None:
+    """The flat-key kernels route keys to the first ``2**shard_bits`` of N
+    shards and index a stack of N x ``rows`` rows in 31 bits."""
+    if not 0 <= shard_bits <= 31 or 1 << shard_bits > N:
+        raise ValueError(f"shard_bits {shard_bits} routes keys past the "
+                         f"{N} stacked shards")
+    if N * max(rows) >= 1 << 31:
+        raise ValueError(f"{N} x {max(rows)} stacked rows: flat keys take "
+                         "fewer than 2**31")
+
+
 def _run(keys, directory, bucket_keys, bucket_vals, depths, *,
-         two_level: bool, tile: int) -> torch.Tensor:
-    """keys (N, K); directory (N, D) int32 (None for the shortcut);
-    bucket_keys/vals (N, C, S) uint32; depths (N,).  Returns (N, K) uint32."""
+         two_level: bool, tile: int, shard_bits=None) -> torch.Tensor:
+    """keys (N, K), or flat (K,) with ``shard_bits``; directory (N, D)
+    int32 (None for the shortcut); bucket_keys/vals (N, C, S) uint32;
+    depths (N,).  Returns uint32 in the keys' shape."""
     bk = _bits_of_table(bucket_keys, "bucket_keys")
     bv = _bits_of_table(bucket_vals, "bucket_vals")
     dev = bk.device
-    k = hashing.bits(keys, device=dev)
-    N, K = k.shape
+    k = _keys(keys, dev, shard_bits)
+    N = k.shape[0] if shard_bits is None else bk.shape[0]
     if bk.dim() != 3 or bk.shape != bv.shape or bk.shape[0] != N:
         raise ValueError(f"bucket arrays {tuple(bk.shape)}/{tuple(bv.shape)} "
                          f"do not match keys {tuple(k.shape)}")
@@ -82,6 +116,10 @@ def _run(keys, directory, bucket_keys, bucket_vals, depths, *,
         raise ValueError(f"{N} shards, at most {MAX_SHARDS} per launch")
     _check_tile(tile)
     gd = torch.as_tensor(depths, dtype=torch.int32, device=dev).reshape(N)
+    if shard_bits is not None:
+        return _run_flat(k, directory, bk, bv, gd, shard_bits,
+                         two_level=two_level, tile=tile)
+    K = k.shape[1]
     out = torch.empty((N, K), dtype=torch.int32, device=dev)
     if dev.type == "cpu":
         for s in range(N):
@@ -98,6 +136,29 @@ def _run(keys, directory, bucket_keys, bucket_vals, depths, *,
         int(two_level), k.data_ptr(), None if d is None else d.data_ptr(),
         bk.data_ptr(), bv.data_ptr(), gd.data_ptr(), out.data_ptr(),
         N, K, 1 if d is None else d.shape[1], C, S, tile, _build.stream(dev))
+    _build.check(err, "eh_lookup")
+    _build.count_launch("eh_lookup" if two_level else "shortcut_lookup")
+    return hashing.from_bits(out)
+
+
+def _run_flat(k, directory, bk, bv, gd, shard_bits: int, *, two_level: bool,
+              tile: int) -> torch.Tensor:
+    """:func:`_run` on flat keys (K,), checked there.  Returns (K,)."""
+    N, C, S = bk.shape
+    _check_flat(shard_bits, N, C)
+    dev = bk.device
+    if dev.type == "cpu":
+        return ref.flat_keys_ref(k, shard_bits, lambda s, ks: ref.lookup_ref(
+            ks, directory[s] if two_level else None, bk[s], bv[s], gd[s]))
+    d = directory if two_level else None
+    _build.require_cuda("eh_lookup", k, bk, bv, gd, *(() if d is None else (d,)))
+    out = torch.empty_like(k)
+    lib = _build.load("eh_lookup", _SIGNATURES)
+    err = lib.eh_lookup_flat_launch(
+        int(two_level), k.data_ptr(), shard_bits,
+        None if d is None else d.data_ptr(), bk.data_ptr(), bv.data_ptr(),
+        gd.data_ptr(), out.data_ptr(), k.numel(),
+        1 if d is None else d.shape[1], C, S, tile, _build.stream(dev))
     _build.check(err, "eh_lookup")
     _build.count_launch("eh_lookup" if two_level else "shortcut_lookup")
     return hashing.from_bits(out)
@@ -122,19 +183,25 @@ def shortcut_lookup(keys, view_keys, view_vals, global_depth, *,
 
 
 def sharded_eh_lookup(keys, directories, bucket_keys, bucket_vals,
-                      global_depths, *, tile: int = 256) -> torch.Tensor:
+                      global_depths, *, tile: int = 256,
+                      shard_bits=None) -> torch.Tensor:
     """Traditional lookup across N stacked shards: keys (N, K) (pad lanes
     return whatever their key finds; callers drop them); directories
-    (N, D); bucket_keys/vals (N, C, S); global_depths (N,).  (N, K) uint32."""
+    (N, D); bucket_keys/vals (N, C, S); global_depths (N,).  (N, K) uint32.
+
+    With ``shard_bits``, keys (K,) in input order, each looked up in its
+    own shard (``shard_of_keys(key, shard_bits)``, which must lie below
+    N): (K,) uint32."""
     return _run(keys, directories, bucket_keys, bucket_vals, global_depths,
-                two_level=True, tile=tile)
+                two_level=True, tile=tile, shard_bits=shard_bits)
 
 
 def sharded_shortcut_lookup(keys, view_keys, view_vals, global_depths, *,
-                            tile: int = 256) -> torch.Tensor:
-    """Shortcut lookup across N stacked shards (views (N, V, S))."""
+                            tile: int = 256, shard_bits=None) -> torch.Tensor:
+    """Shortcut lookup across N stacked shards (views (N, V, S)); keys
+    (N, K), or (K,) with ``shard_bits`` as :func:`sharded_eh_lookup`."""
     return _run(keys, None, view_keys, view_vals, global_depths,
-                two_level=False, tile=tile)
+                two_level=False, tile=tile, shard_bits=shard_bits)
 
 
 def stacked_shortcut_lookup(keys, view_keys, view_vals, view_log2s, shard, *,
@@ -174,14 +241,17 @@ def stacked_shortcut_lookup(keys, view_keys, view_vals, view_log2s, shard, *,
 
 def sharded_routed_lookup(keys, directories, bucket_keys, bucket_vals,
                           global_depths, view_keys, view_vals, view_log2s,
-                          two_level, *, tile: int = 256) -> torch.Tensor:
+                          two_level, *, tile: int = 256,
+                          shard_bits=None) -> torch.Tensor:
     """Per-shard routed lookup across N stacked shards, in one launch.
 
     ``two_level`` (N,): nonzero shards resolve through directories (N, D)
     and bucket pools (N, C, S) at ``global_depths``; zero shards through
     their views (N, V, S) at ``view_log2s`` (rows past ``2**view_log2s[s]``
     are pad and never indexed).  keys (N, K); returns (N, K) uint32 in the
-    padded layout of :func:`sharded_eh_lookup`."""
+    padded layout of :func:`sharded_eh_lookup`.  With ``shard_bits``, keys
+    (K,) in input order, each resolved in its own shard by that shard's
+    route: (K,) uint32."""
     if bucket_keys.shape[-1] != view_keys.shape[-1]:
         raise ValueError(
             f"bucket/view slot widths differ: {bucket_keys.shape[-1]} "
@@ -191,10 +261,8 @@ def sharded_routed_lookup(keys, directories, bucket_keys, bucket_vals,
     vk = _bits_of_table(view_keys, "view_keys")
     vv = _bits_of_table(view_vals, "view_vals")
     dev = bk.device
-    k = hashing.bits(keys, device=dev).contiguous()
-    if k.dim() != 2:
-        raise ValueError(f"keys must be (N, K), got {tuple(k.shape)}")
-    N, K = k.shape
+    k = _keys(keys, dev, shard_bits)
+    N = k.shape[0] if shard_bits is None else bk.shape[0]
     if bk.dim() != 3 or bk.shape != bv.shape or bk.shape[0] != N:
         raise ValueError(f"bucket arrays {tuple(bk.shape)}/{tuple(bv.shape)} "
                          f"do not match keys {tuple(k.shape)}")
@@ -212,19 +280,33 @@ def sharded_routed_lookup(keys, directories, bucket_keys, bucket_vals,
     sc = torch.stack([_per_shard(two_level, N, dev, "two_level"),
                       _per_shard(global_depths, N, dev, "global_depths"),
                       _per_shard(view_log2s, N, dev, "view_log2s")])
+    if shard_bits is not None:
+        _check_flat(shard_bits, N, bk.shape[1], vk.shape[1])
     if dev.type == "cpu":
-        return ref.routed_lookup_ref(k, directories, bucket_keys,
-                                     bucket_vals, sc[1], view_keys,
-                                     view_vals, sc[2], sc[0])
+        if shard_bits is None:
+            return ref.routed_lookup_ref(k, directories, bucket_keys,
+                                         bucket_vals, sc[1], view_keys,
+                                         view_vals, sc[2], sc[0])
+        return ref.flat_keys_ref(k, shard_bits, lambda s, ks: ref.lookup_ref(
+            ks, directories[s], bk[s], bv[s], sc[1, s]) if sc[0, s] else
+            ref.lookup_ref(ks, None, vk[s], vv[s], sc[2, s]))
     _build.require_cuda("sharded_routed_lookup", k, directories, bk, bv,
                         vk, vv, sc)
     out = torch.empty_like(k)
     C, S = bk.shape[1:]
     lib = _build.load("eh_lookup", _SIGNATURES)
-    err = lib.routed_lookup_launch(
-        k.data_ptr(), directories.data_ptr(), bk.data_ptr(), bv.data_ptr(),
-        vk.data_ptr(), vv.data_ptr(), sc.data_ptr(), out.data_ptr(), N, K,
-        directories.shape[1], C, vk.shape[1], S, tile, _build.stream(dev))
+    if shard_bits is None:
+        err = lib.routed_lookup_launch(
+            k.data_ptr(), directories.data_ptr(), bk.data_ptr(),
+            bv.data_ptr(), vk.data_ptr(), vv.data_ptr(), sc.data_ptr(),
+            out.data_ptr(), N, k.shape[1], directories.shape[1], C,
+            vk.shape[1], S, tile, _build.stream(dev))
+    else:
+        err = lib.routed_lookup_flat_launch(
+            k.data_ptr(), shard_bits, directories.data_ptr(), bk.data_ptr(),
+            bv.data_ptr(), vk.data_ptr(), vv.data_ptr(), sc.data_ptr(),
+            out.data_ptr(), N, k.numel(), directories.shape[1], C,
+            vk.shape[1], S, tile, _build.stream(dev))
     _build.check(err, "sharded_routed_lookup")
     _build.count_launch("sharded_routed_lookup")
     return hashing.from_bits(out)

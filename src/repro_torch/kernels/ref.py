@@ -89,6 +89,20 @@ def routed_lookup_ref(keys, directories, bucket_keys, bucket_vals,
     return hashing.from_bits(out)
 
 
+def flat_keys_ref(keys, shard_bits: int, lookup_shard) -> torch.Tensor:
+    """The sharded lookups' flat-key mode: keys (K,) in input order, those
+    of shard s (:func:`hashing.shard_of_keys`) resolved by
+    ``lookup_shard(s, keys_of_s)``, each value at its key's index.
+    Returns (K,) uint32."""
+    k = hashing.bits(keys)
+    sid = hashing.shard_of_keys(k, shard_bits)
+    out = torch.empty_like(k)
+    for s in torch.unique(sid).tolist():
+        at = sid == s
+        out[at] = hashing.bits(lookup_shard(s, k[at]))
+    return hashing.from_bits(out)
+
+
 def ragged_copy_ref(view, pool, slots, offsets) -> torch.Tensor:
     """``view[slots[i]] = pool[offsets[i]]`` in place, the last of duplicate
     slots winning (the sequential grid of the TPU kernel); returns view."""

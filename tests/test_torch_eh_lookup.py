@@ -17,6 +17,8 @@ from repro_torch.kernels import eh_lookup as tk
 from repro_torch.kernels import ops
 
 from conftest import unique_keys
+from eh_stacks import (ARMS, FLAT_TILE, distinct_keys, flat_arm, flat_case,
+                       flat_stacks)  # noqa: F401 (a fixture)
 
 
 def build(rng, n, *, depth, slots, capacity):
@@ -124,12 +126,6 @@ def test_rejects_bad_operands(rng):
                      tst.bucket_vals, tst.global_depth, tile=0)
 
 
-def distinct_keys(rng, n, lo=1, hi=2**31):
-    """``n`` distinct uint32 keys in ``[lo, hi)``, drawn without building the
-    whole range."""
-    return (rng.choice(hi - lo, n, replace=False) + lo).astype(np.uint32)
-
-
 @pytest.fixture(scope="module")
 def stacked():
     """Four shards' states and composed views, stacked for both packages
@@ -205,3 +201,71 @@ def test_routed_rejects_slot_width_mismatch(stacked):
     with pytest.raises(ValueError, match="slot widths"):
         tk.sharded_routed_lookup(keys, *trad, view[0][:, :, :4],
                                  view[1][:, :, :4], view[2], flags, tile=64)
+
+
+# -- flat-key mode: the sharded lookups on keys in input order --------------
+
+def padded_then_scattered(fs, arm, keys):
+    """The padded arm on the batch partitioned by shard, scattered back to
+    input order: what the flat-key mode replaces."""
+    from repro_torch.core.sharded_eh import ShardedShortcutEH, shard_of_keys
+    from repro_torch.runtime.shard_group import partition_by_shard
+    k = torch.from_numpy(keys.view(np.int32))
+    sid = shard_of_keys(k, fs["bits"])
+    cap = max(1, int(torch.bincount(sid, minlength=fs["N"]).max()))
+    padded, _, order, rank = partition_by_shard(k, sid, fs["N"], cap)
+    res = flat_arm(fs, arm, padded)
+    return ShardedShortcutEH._scatter_back(res, sid, order, rank)
+
+
+@pytest.mark.parametrize("arm", ARMS)
+@pytest.mark.parametrize("case", ["every_shard", "shard_without_keys",
+                                  "one_shard", "one_key", "off_tile",
+                                  "absent"])
+def test_flat_keys_match_padded_and_scattered(flat_stacks, arm, case):
+    """Each flat-key arm equals its padded arm plus the scatter-back, bit
+    for bit: present keys their values, absent keys MISS, shard 0's
+    (empty table) keys MISS on every arm."""
+    fs = flat_stacks
+    rng = np.random.default_rng(hash((fs["N"], arm, case)) % 2**32)
+    keys = flat_case(fs, case, rng)
+    got = flat_arm(fs, arm, keys, shard_bits=fs["bits"])
+    want = padded_then_scattered(fs, arm, keys)
+    assert got.shape == (keys.size,) and got.dtype == torch.uint32
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                  want.view(torch.int32).numpy())
+    g = got.view(torch.int32).numpy().view(np.uint32)
+    lost = np.isin(keys, np.concatenate(fs["missing"] + [fs["present"][0]]))
+    assert (g[lost] == 0xFFFFFFFF).all()
+    assert (g[~lost] != 0xFFFFFFFF).all() or case == "absent"
+    if case == "off_tile":
+        assert keys.size % FLAT_TILE != 0
+
+
+@pytest.mark.parametrize("arm", ARMS)
+def test_flat_keys_one_bit_short_fails(flat_stacks, arm):
+    """The wrong variant: each key's shard taken from one bit too few of
+    its hash (the keys of the upper half land in the lower shards)."""
+    fs = flat_stacks
+    keys = flat_case(fs, "every_shard", np.random.default_rng(3))
+    want = padded_then_scattered(fs, arm, keys).view(torch.int32)
+    wrong = flat_arm(fs, arm, keys, shard_bits=fs["bits"] - 1)
+    assert (wrong.view(torch.int32) != want).sum() > 0
+
+
+def test_flat_keys_refuse_bad_layouts(stacked):
+    keys, trad, view, _, _ = stacked
+    flat = keys.reshape(-1)
+    with pytest.raises(ValueError, match="routes keys past"):
+        tk.sharded_shortcut_lookup(flat, *view, shard_bits=3)
+    with pytest.raises(ValueError, match="routes keys past"):
+        tk.sharded_routed_lookup(flat, *trad, *view, np.zeros(4, np.int32),
+                                 shard_bits=-1)
+    with pytest.raises(ValueError, match=r"must be \(K,\)"):
+        tk.sharded_eh_lookup(keys, *trad, shard_bits=2)
+    with pytest.raises(ValueError, match=r"must be \(N, K\)"):
+        tk.sharded_eh_lookup(flat, *trad)
+    # the flat kernels index a stack's rows in 31 bits
+    tk._check_flat(2, 4, (1 << 29) - 1)
+    with pytest.raises(ValueError, match="fewer than 2"):
+        tk._check_flat(2, 4, 64, 1 << 29)

@@ -77,6 +77,7 @@ def test_ops_tied_to_their_launch_by_correlation():
     m = T.new_metrics(tv, {"published": 4, "lag_seconds": 0.2,
                            "lookup_keys": 100, "lookup_slots": 256})
     assert m["partition_device_ms"] == pytest.approx(0.01)
+    assert m["partition_spans"] == 1
     assert m["view_lag_ms"] == pytest.approx(50.0)
     assert m["lookup_slots_per_key"] == pytest.approx(2.56)
     assert m["replay_device_ms"] is None          # no insert call traced
@@ -84,6 +85,20 @@ def test_ops_tied_to_their_launch_by_correlation():
     early = [dict(e) for e in EVENTS]
     early[-2]["ts"] = 30
     assert T.parse_threads(early).one_clock() == pytest.approx(2 / 3)
+
+
+def test_no_partition_span_reads_zero():
+    """A sharded lookup that routes its keys inside the kernel opens no
+    partition span: partition_device_ms says no partition ran (0.0) and
+    divides by nothing; with no lookup call traced it reads None."""
+    ev = [e for e in EVENTS if e["name"] != "eh.partition"]
+    m = T.new_metrics(T.parse_threads(ev), {"lookup_keys": 100,
+                                            "lookup_slots": 100})
+    assert m["partition_device_ms"] == 0.0 and m["partition_spans"] == 0
+    assert m["lookup_slots_per_key"] == 1.0
+    ev = [e for e in ev if e["name"] != "bench.lookup_call"]
+    assert T.new_metrics(T.parse_threads(ev), {})["partition_device_ms"] \
+        is None
 
 
 def test_launch_on_a_reused_thread_id_takes_the_open_mapper_span():
@@ -130,8 +145,10 @@ def test_run_on_the_stand_in(tiny, cell):
                                         "span_on"}
     if cell.endswith("read_zipf"):
         assert m["lookup_gate_ms"] > 0
-        assert m["lookup_slots_per_key"] >= 1.0
-        assert n["lookup_slots"] >= n["lookup_keys"] > 0
+        # one slot a key, and no partition around the launch
+        assert m["lookup_slots_per_key"] == 1.0
+        assert n["lookup_slots"] == n["lookup_keys"] > 0
+        assert m["partition_device_ms"] == 0.0
     else:
         # the window's mappers replay; a read window's sleep
         assert any(t.startswith("eh-mapper") for t in out["threads"])

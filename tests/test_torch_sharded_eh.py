@@ -3,7 +3,9 @@ against ``repro.core.sharded_eh`` on the same insert/pump/lookup trace, for
 1, 2 and 4 shards.  Per-shard states and views, ``lookup`` and
 ``lookup_batched`` answers (all three dispatch arms), route counters,
 maintenance stats, operand-cache stats, epochs and published flags must all
-be identical.  The async test races lookups against the mapper threads'
+be identical on batches that touch every shard; on a batch that touches
+some, ``lookup_batched`` counts a route for every shard (it reads no
+per-shard counts), where the JAX package counts the touched ones.  The async test races lookups against the mapper threads'
 copy-on-write publishes."""
 import threading
 
@@ -151,6 +153,47 @@ def test_trace_matches_reference(num_shards, arms):
             out = getattr(t, fn)(np.empty(0, np.uint32))
             assert out.shape == (0,) and out.dtype == torch.uint32
         assert (dict(arms), observe(t)) == before
+    finally:
+        j.close()
+        t.close()
+
+
+def test_batched_counts_every_shard(arms):
+    """``lookup_batched`` reads nothing of which shards a batch touches, so
+    every shard is involved in a non-empty batch: one route count each
+    (the JAX package counts the touched shards only), and a shard that
+    refuses the shortcut puts even a batch that never reaches it on the
+    routed arm.  The answers are the JAX package's either way."""
+    rng = np.random.default_rng(21)
+    keys = distinct_keys(rng, 600)
+    vals = np.arange(600, dtype=np.uint32)
+    j = JSharded(12, 8, 2048, num_shards=4, fan_in_threshold=64.0)
+    t = TSharded(12, 8, 2048, num_shards=4, fan_in_threshold=64.0,
+                 device="cpu")
+    try:
+        for idx in (j, t):
+            idx.insert(keys, vals)
+            idx.pump()
+        probe = keys[j_shard_of_keys(keys, 2) == 0]     # shard 0's keys
+
+        def routes():
+            return [(m.routed_shortcut, m.routed_fallback) for m in t.group]
+
+        before = routes()
+        for flip in (False, True):
+            if flip:                      # shard 3 refuses the shortcut
+                for idx in (j, t):
+                    idx.shards[3].fan_in_threshold = -1.0
+                before = routes()
+            got = u32(t.lookup_batched(probe))
+            np.testing.assert_array_equal(got, vals[np.isin(keys, probe)])
+            np.testing.assert_array_equal(
+                got, np.asarray(j.lookup_batched(probe)))
+            moved = [(a - c, b - d) for (a, b), (c, d) in zip(routes(),
+                                                              before)]
+            assert moved == [(1, 0)] * 3 + [(0, 1) if flip else (1, 0)]
+        assert arms == {"trad": 0, "shortcut": 1, "routed": 1}
+        assert t.lookup_slots == t.lookup_keys == 2 * probe.size
     finally:
         j.close()
         t.close()

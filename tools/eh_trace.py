@@ -19,11 +19,14 @@ It prints one JSON object (also written to ``--out``):
 
   * ``metrics``: the cell's per-layer readers on the harness thread's view,
     and ``partition_device_ms`` (device time launched under
-    ``eh.partition`` / ``eh.scatter_back``, per traced lookup call),
+    ``eh.partition`` / ``eh.scatter_back``, per traced lookup call; 0.0
+    where no such span opened, as ``partition_spans``, their count, says:
+    the sharded lookup routes its keys inside the kernel),
     ``lookup_slots_per_key`` (the sharded index's ``lookup_slots /
-    lookup_keys``), ``view_lag_ms`` (``1000 * lag_seconds / published``)
-    and ``replay_device_ms`` (device time launched from other threads under
-    ``mapper.*`` spans, per insert batch of the window);
+    lookup_keys``: 1.0 without padding), ``view_lag_ms`` (``1000 *
+    lag_seconds / published``) and ``replay_device_ms`` (device time
+    launched from other threads under ``mapper.*`` spans, per insert batch
+    of the window);
   * ``one_clock``: the share of linked device operations that start no
     earlier than their launch (less ``LAUNCH_SLACK_US``), and
     ``lead_by_bin``: the least lead of an operation over its launch in
@@ -245,15 +248,23 @@ def parse_threads(events: list, names: Optional[dict] = None) -> ThreadsView:
                        ops=ops, relinked=sum(f is not None for f in found))
 
 
+PARTITION_SPANS = ("eh.partition", "eh.scatter_back")
+
+
 def new_metrics(tv: ThreadsView, counters: dict) -> dict:
     """The four per-layer numbers the harness thread's view cannot give
     (None where the trace or the counters hold nothing to read)."""
     out = {}
     calls = len(tv.view.spans("bench.lookup_call"))
-    part = tv.device_s(lambda o: o.tid == tv.harness_tid and o.span in (
-        "eh.partition", "eh.scatter_back"))
-    out["partition_device_ms"] = 1e3 * part / calls if calls and part \
-        else None
+    # spans of a partition around the sharded launch (sort, pad, scatter
+    # back); a program that routes each key inside the kernel opens none,
+    # and its partition_device_ms reads 0.0: no partition ran
+    ran = sum(len(tv.view.spans(n)) for n in PARTITION_SPANS)
+    part = tv.device_s(lambda o: o.tid == tv.harness_tid
+                       and o.span in PARTITION_SPANS)
+    out["partition_spans"] = ran
+    out["partition_device_ms"] = (None if not calls else
+                                  1e3 * part / calls if ran else 0.0)
     keys = counters.get("lookup_keys", 0)
     out["lookup_slots_per_key"] = (counters.get("lookup_slots", 0) / keys
                                    if keys else None)
