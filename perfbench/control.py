@@ -1,15 +1,25 @@
-"""The control of the check: the plain reference put in the program's place
-with one of the configuration's guarantees broken, run through the rest of
-a benchmark run, whose ``correct`` has to come out false.
+"""The control of the check, run through the rest of a benchmark run,
+whose ``correct`` has to come out false.
 
-The guarantee broken is read-your-writes: the stand-in answers from a map
-that never takes in the newest insert batch, as a shortcut view served
-without its version gate would after a replay was dropped.  Everything
-else is the reference's own exact answer.  The benchmark's runs never use
-this; it runs as
+An index cell's control is the plain reference put in the program's place
+with one of the configuration's guarantees broken: read-your-writes.  The
+stand-in answers from a map that never takes in the newest insert batch,
+as a shortcut view served without its version gate would after a replay
+was dropped.  Everything else is the reference's own exact answer.
+
+A served model's control is the reference computed a precision below the
+configuration's (bfloat16): float8.  It need not decode: the program serves
+as usual, and the check judges, at each position of the same prompts and
+served tokens, the token that the float8 reference puts first
+(:class:`LowPrecision`).  ``--fault`` instead plants a wrong decode in the
+program (:data:`FAULTS`): a decode step that hands its state back
+unchanged, the rotary position off by one, the SSM state zeroed, the top-k
+weights left un-renormalized.
+
+The benchmark's runs never use this; it runs as
 
     python3 perfbench/control.py --workload <name> --seconds <s> \\
-        --seeds <n> [<n> ...]
+        --seeds <n> [<n> ...] [--fault <name>]
 
 which prints one result line per seed (the numbers compared under
 ``checks``) and exits 0 only if every seed's ``correct`` is false.
@@ -69,6 +79,102 @@ class StaleSystem:
         return StaleMap(self.reference)
 
 
+class LowPrecision:
+    """A ``systems/<name>.py`` stand-in for a served model: the system's own
+    server, whose check judges the tokens the reference computed in
+    ``precision`` puts first."""
+
+    def __init__(self, system, precision: str = "fp8"):
+        self.system, self.precision = system, precision
+
+    def build(self, config: dict, device):
+        server = self.system.build(config, device)
+        server.control_precision = self.precision
+        return server
+
+
+def _state_unchanged():
+    """The serving step's token, but its state handed back as it came in:
+    no new K/V row, the SSM conv window and state as they were."""
+    import torch
+    from repro_torch.runtime import serve as rt
+    make = rt.make_serve_step
+
+    def made(cfg):
+        step = make(cfg)
+
+        def wrong(params, state, token):
+            b = torch.arange(token.shape[0], device=token.device)
+            at = state.ctx_len.long()
+            views = [v for v in (state.view_k, state.view_v)
+                     if isinstance(v, torch.Tensor)]
+            rows = [v[:, b, :, at].clone() for v in views]
+            ssm = [m for m in (state.ssm_conv, state.ssm_state)
+                   if isinstance(m, torch.Tensor)]
+            old = [m.clone() for m in ssm]
+            tok, _ = step(params, state, token)
+            for v, r in zip(views, rows):
+                v[:, b, :, at] = r
+            for m, o in zip(ssm, old):
+                m.copy_(o)
+            return tok, state
+        return wrong
+    return rt, "make_serve_step", made
+
+
+def _rope_off_by_one():
+    from repro_torch.models import model as M
+    decode = M.decode_step
+
+    def wrong(params, cfg, token, ctx, ctx_len, positions=None):
+        return decode(params, cfg, token, ctx, ctx_len, positions=ctx_len)
+    return M, "decode_step", wrong
+
+
+def _ssm_state_zeroed():
+    import torch
+    from repro_torch.models import ssm
+    step = ssm.ssm_decode
+
+    def wrong(p, x, cache, cfg):
+        return step(p, x, cache._replace(state=torch.zeros_like(cache.state)),
+                    cfg)
+    return ssm, "ssm_decode", wrong
+
+
+def _topk_not_renormalized():
+    from repro_torch.models import moe
+    route = moe.route
+
+    def wrong(p, x, cfg):
+        probs, _, top_i = route(p, x, cfg)
+        return probs, probs.gather(-1, top_i), top_i
+    return moe, "route", wrong
+
+
+#: wrong decodes planted in the program: name -> () -> (module, attribute,
+#: replacement)
+FAULTS = {"state_unchanged": _state_unchanged,
+          "rope_off_by_one": _rope_off_by_one,
+          "ssm_state_zeroed": _ssm_state_zeroed,
+          "topk_not_renormalized": _topk_not_renormalized}
+
+
+class planted:
+    """Context manager: the program with the fault ``name`` in place."""
+
+    def __init__(self, name: str):
+        self.module, self.attr, self.wrong = FAULTS[name]()
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.attr)
+        setattr(self.module, self.attr, self.wrong)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
 def main(argv) -> int:
     import argparse
     import io
@@ -81,22 +187,35 @@ def main(argv) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seconds", default="5")
     p.add_argument("--seeds", nargs="+", required=True)
+    p.add_argument("--fault", choices=sorted(FAULTS),
+                   help="a served model's wrong decode, in place of the "
+                   "float8 control")
     args = p.parse_args(argv)
     root = Path(ROOT)
     cell = spec.resolve(spec.load_spec(root), args.workload,
                         root / "perfbench")
+    serve = cell.traffic["kind"] == "serve"
+    if args.fault and not serve:
+        p.error("--fault plants a wrong decode: a served model's cell only")
+    system = None
+    if not serve:
+        system = StaleSystem(cell.reference)
+    elif not args.fault:
+        system = LowPrecision(cell.system)
     failed_all = True
     for seed in args.seeds:
         out = io.StringIO()
-        with contextlib.redirect_stdout(out):
+        fault = planted(args.fault) if args.fault else contextlib.nullcontext()
+        with contextlib.redirect_stdout(out), fault:
             rc = harness.main(
                 ["--workload", args.workload, "--seed", seed, "--seconds",
                  args.seconds, "--trace", "0"], root=root,
-                t_start=time.perf_counter(),
-                system=StaleSystem(cell.reference))
+                t_start=time.perf_counter(), system=system)
         lines = out.getvalue().strip().splitlines()
         res = json.loads(lines[-1]) if rc == 0 and lines else None
         print(json.dumps({"workload": args.workload, "seed": seed, "rc": rc,
+                          "control": args.fault or
+                          ("float8" if serve else "stale map"),
                           "correct": None if res is None else res["correct"],
                           "checks": None if res is None else res["checks"]}),
               flush=True)

@@ -8,7 +8,10 @@ Order of a run: the traffic's data and the harness's own buffers
 (``start``), a read cell's resident bytes read once caught up: set-up
 ends; the window; the peak device memory read; the per-layer readers
 (``--trace 1``); the check against the plain reference, after the
-program's state is freed; the look for JAX in ``sys.modules``.
+program's state is freed, each number held to its limit (the traffic
+kind's ``LIMITS``, or the configuration's ``limits`` where it states
+one; a check that compares nothing is not correct); the look for JAX in
+``sys.modules``.
 The last line of standard output is one JSON object; the numbers compared
 are the last lines of standard error too.
 """
@@ -68,13 +71,16 @@ class Env:
 @dataclass
 class ReadCtx:
     """What a per-layer reader gets: the traced stretch, the counters of
-    the window, the probes of each traced lookup request, and the run's
-    device bytes (``peak``, ``harness``: the harness's own buffers,
-    ``records``)."""
+    the window, the probes of each traced lookup request, the run's device
+    bytes (``peak``, ``harness``: the harness's own buffers, and
+    ``records`` where the configuration has records), and the cell's
+    configuration and traffic."""
     trace: object
     counters: dict
     traced_probes: list
     memory: dict
+    config: dict = None
+    traffic: dict = None
 
 
 def parse_args(argv):
@@ -112,10 +118,12 @@ def run_cell(cell, args, *, dev, device, t_start: float,
                    "power_limit": dev.power_limit()}
     metrics, breakdown = {}, None
     if args.trace:
+        memory = {"peak": peak, "harness": harness_bytes}
+        if "records" in cell.config:
+            memory["records"] = cell.config["records"]
         ctx = ReadCtx(trace=w.trace, counters=w.counters,
-                      traced_probes=w.traced_probes,
-                      memory={"peak": peak, "harness": harness_bytes,
-                              "records": cell.config["records"]})
+                      traced_probes=w.traced_probes, memory=memory,
+                      config=cell.config, traffic=cell.traffic)
         for m, reader in cell.per_layer:
             v = reader.read(ctx)
             if v is not None:
@@ -138,11 +146,15 @@ def run_cell(cell, args, *, dev, device, t_start: float,
                                "does not measure")
             metrics[m["name"]] = {"value": float(values[m["name"]]),
                                   "unit": m["unit"]}
+    t_check = env.clock()
     numbers, compared = kind.check(env, st)
-    checks = {k: {"value": v, "limit": kind.LIMITS[k]}
+    log(f"check: {env.clock() - t_check:.1f} s")
+    limits = {**kind.LIMITS, **cell.config.get("limits", {})}
+    checks = {k: {"value": v, "limit": limits[k]}
               for k, v in numbers.items()}
-    correct = w.failed == 0 and all(c["value"] <= c["limit"]
-                                    for c in checks.values())
+    # a check that compared nothing proves nothing
+    correct = w.failed == 0 and bool(checks) and all(
+        c["value"] <= c["limit"] for c in checks.values())
     result = {"correct": correct, "attempted": w.attempted,
               "failed": w.failed, "metrics": metrics, "device": device_info}
     if breakdown is not None:

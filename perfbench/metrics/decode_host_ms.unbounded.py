@@ -1,0 +1,9 @@
+"""``decode_host_ms`` for a cell whose decode has no bound: the median host
+time (ms) of one decode step, from the serving step's entry to its
+return: the ``bench.decode_step`` spans of the traced requests."""
+import statistics
+
+
+def read(ctx):
+    spans = ctx.trace.spans("bench.decode_step") if ctx.trace else []
+    return statistics.median(spans) * 1e3 if spans else None

@@ -4,3 +4,5 @@ records the card's limit beside every run)."""
 
 #: HBM3 bandwidth of one H100 SXM, bytes per second
 HBM_BYTES_PER_S = 3.35e12
+#: dense bfloat16 tensor-core rate of one H100 SXM, FLOP per second
+BF16_FLOPS_PER_S = 989e12

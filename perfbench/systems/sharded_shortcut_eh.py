@@ -1,6 +1,7 @@
 """The partitioned index: ``repro_torch``'s ``ShardedShortcutEH`` with
 ``num_shards`` shards on one card, looked up through ``lookup_batched``
-(partition, per-shard gates, one fused launch, scatter back)."""
+(per-shard gates, then one fused launch over the keys in their input
+order, each key finding its shard inside the kernel)."""
 from __future__ import annotations
 
 from repro_torch.core.sharded_eh import ShardedShortcutEH

@@ -114,12 +114,74 @@ def test_metrics():
         assert any(c in m["workloads"] for m in pl)
 
 
+SERVE_CELLS = ["qwen2_moe_a2_7b.azure_code", "hymba_1_5b.azure_code"]
+
+
+@pytest.mark.parametrize("name, unit, better, source, moves, cells", [
+    ("serve_tokens_per_s", "tokens/s", "higher", "host_clock", None,
+     SERVE_CELLS[1:]),
+    ("decode_step_p95_ms", "ms", "lower", "device_trace", None,
+     SERVE_CELLS[1:]),
+    ("ttft_ms_per_1k_prompt_tokens", "ms/ktok", "lower", "device_trace",
+     None, SERVE_CELLS),
+    ("decode_host_ms", "ms", "lower", "program_span", "decode_step_p95_ms",
+     SERVE_CELLS[1:]),
+    ("decode_host_ms.unbounded", "ms", "lower", "program_span",
+     "ttft_ms_per_1k_prompt_tokens", SERVE_CELLS[:1]),
+    ("serve_tokens_per_s.unbounded", "tokens/s", "higher", "device_trace",
+     "ttft_ms_per_1k_prompt_tokens", SERVE_CELLS[:1]),
+    ("decode_step_p95_ms.unbounded", "ms", "lower", "device_trace",
+     "ttft_ms_per_1k_prompt_tokens", SERVE_CELLS[:1]),
+    ("device_idle_pct.decode", "%", "lower", "device_trace",
+     "serve_tokens_per_s", SERVE_CELLS[1:]),
+    ("moe_device_pct.decode", "%", "lower", "device_trace",
+     "ttft_ms_per_1k_prompt_tokens", SERVE_CELLS[:1]),
+    ("ssm_device_pct.decode", "%", "lower", "device_trace",
+     "decode_step_p95_ms", SERVE_CELLS[1:]),
+    ("decode_attn_roofline_pct", "%", "higher", "device_trace",
+     "decode_step_p95_ms", SERVE_CELLS[1:]),
+    ("flash_roofline_pct", "%", "higher", "device_trace",
+     "ttft_ms_per_1k_prompt_tokens", SERVE_CELLS),
+    ("step_mfu.decode", "%", "higher", "device_trace", "decode_step_p95_ms",
+     SERVE_CELLS[1:]),
+    ("step_mfu.prefill", "%", "higher", "device_trace",
+     "ttft_ms_per_1k_prompt_tokens", SERVE_CELLS)])
+def test_serving_metrics(name, unit, better, source, moves, cells):
+    """The serving cells' metrics: each end-to-end one bounded within the
+    contract's range and listed for the serving cells alone, each
+    per-layer one moving a serving metric in the cells that read it.  The
+    decode's rate and tail are end to end where they are steady (hymba),
+    and per layer (``*.unbounded``) in qwen2_moe, whose host-bound decode
+    spreads past the contract's largest bound between runs."""
+    m = {x["name"]: x for x in BENCH["end_to_end"] + BENCH["per_layer"]}[name]
+    assert (m["unit"], m["better"], m["source"]) == (unit, better, source)
+    assert m["workloads"] == cells
+    if moves is None:
+        assert 0.01 <= m["bound"] <= 0.25
+    else:
+        assert m["moves"] == moves
+
+
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_every_served_cell_compares_the_mean_gap(cell):
+    """Whatever a served model's configuration says, its check compares the
+    mean gap of the served tokens (the kind's ``COMPARED``), and the
+    configuration gives each compared number a limit."""
+    c = spec.resolve(BENCH, cell, REPO / "perfbench")
+    assert "token_gap_mean_sd" in c.kind.COMPARED
+    assert set(c.kind.COMPARED) <= set(c.config["limits"])
+    assert all(0 < v for v in c.config["limits"].values())
+    assert isinstance(c.config["batch"], int) and c.config["batch"] >= 1
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_every_workload_resolves_to_its_files(cell):
     c = spec.resolve(BENCH, cell, REPO / "perfbench")
     w = c.workload
     assert (REPO / "perfbench" / "traffic" / f"{w['traffic']}.json").exists()
-    assert hasattr(c.system, "build") and hasattr(c.reference, "KVMap")
+    # an index cell's reference is a map, a served model's its logits
+    assert hasattr(c.system, "build") and hasattr(
+        c.reference, "logits" if c.traffic["kind"] == "serve" else "KVMap")
     for fn in ("prepare", "start", "window", "check"):
         assert hasattr(c.kind, fn)
     assert {m["name"] for m, _ in c.per_layer} == {

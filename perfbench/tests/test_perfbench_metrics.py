@@ -2,6 +2,7 @@
 same for the same probes on both routes of both configurations, and the
 readers return nothing where they find nothing to read."""
 import importlib.util
+import json
 
 import pytest
 import torch
@@ -15,6 +16,8 @@ from repro_torch.core.sharded_eh import ShardedShortcutEH
 from repro_torch.core.shortcut_eh import ShortcutEH
 
 METRICS = stand_in.REPO / "perfbench" / "metrics"
+BENCH_PER_LAYER = json.loads(
+    (stand_in.REPO / "BENCHMARK.json").read_text())["per_layer"]
 
 
 def _reader(name: str):
@@ -112,3 +115,77 @@ def test_roofline_readers_on_a_made_up_trace():
     got = _reader("insert_kernel_roofline_pct").read(ctx)
     assert got == pytest.approx(100 * 16e6 / bw / 400e-6)
     assert _reader("device_idle_pct.lookup").read(ctx) == pytest.approx(10.0)
+
+
+def _parse_before(events: list):
+    """``trace_read.parse`` as it was before it kept correlations: the
+    window span, the device operations and the harness thread's host
+    events."""
+    win = [e for e in events if e.get("ph") == "X"
+           and e.get("name") == trace_read.WINDOW_SPAN
+           and e.get("cat") == "user_annotation"][0]
+    t0, t1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    ops, host = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        s, end = max(float(e["ts"]), t0), min(float(e["ts"]) + e["dur"], t1)
+        if end <= s:
+            continue
+        cat = e.get("cat", "")
+        if cat in trace_read.DEVICE_CATS:
+            ops.append((e.get("name", "?"), s, end))
+        elif cat in trace_read.HOST_CATS and e.get("tid") == win.get("tid"):
+            host.append((e.get("name", "?"), cat, s, end))
+    return trace_read.TraceView(t0, t1, device_ops=ops, host=host)
+
+
+@pytest.mark.parametrize("cell", ["fig7_100m.read_uniform",
+                                  "sharded4_100m.read_zipf",
+                                  "fig7_100m.ingest"])
+def test_index_readers_unchanged_by_correlations(tmp_path, cell,
+                                                 monkeypatch):
+    """A stand-in run's trace, with device operations and their launches
+    added, read by the index cells' readers through ``parse`` (which now
+    keeps correlations) and through the parse before it: the same values,
+    and the same operations and host events."""
+    root = stand_in.tiny_copy(tmp_path)
+    seen = []
+    parse = trace_read.parse
+
+    def keep(events):
+        tid = [e for e in events if e.get("name") == trace_read.WINDOW_SPAN
+               ][0].get("tid")
+        calls = sorted(e["ts"] for e in events if e.get("ph") == "X"
+                       and e.get("tid") == tid and e.get("cat") == "cpu_op")
+        for i, ts in enumerate(calls[:200]):
+            name = ("void eh_lookup_kernel<false>(...)", "eh_insert_kernel",
+                    "Memcpy DtoH")[i % 3]
+            events.append({"ph": "X", "cat": "cuda_runtime", "tid": tid,
+                           "name": "cudaLaunchKernel", "ts": ts, "dur": 1,
+                           "args": {"correlation": i}})
+            events.append({"ph": "X", "cat": "kernel" if i % 3 < 2 else
+                           "gpu_memcpy", "tid": 99, "name": name,
+                           "ts": ts + 2, "dur": 3 + i % 5,
+                           "args": {"correlation": i}})
+        seen.append(events)
+        return parse(events)
+
+    monkeypatch.setattr(trace_read, "parse", keep)
+    rc, res = stand_in.run(root, cell, trace=1, seconds=0.3)
+    assert rc == 0 and seen
+    new, old = parse(seen[0]), _parse_before(seen[0])
+    assert new.device_ops == old.device_ops and new.host == old.host
+    assert new.device_ops and new.launches
+    probes = [(torch.arange(100, dtype=torch.int32), None)]
+    for m in BENCH_PER_LAYER:
+        if cell not in m["workloads"]:
+            continue
+        r = _reader(m["name"])
+        got = [r.read(ReadCtx(trace=v, counters={"keys_inserted_traced": 9,
+                                                 "routed_shortcut": 3},
+                              traced_probes=probes,
+                              memory={"peak": 8, "harness": 1,
+                                      "records": 2}))
+               for v in (new, old)]
+        assert got[0] == got[1], m["name"]

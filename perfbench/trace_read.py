@@ -6,10 +6,14 @@ span ``bench.window`` over the traced stretch, writes the Chrome trace to a
 temporary file (``TMPDIR``), reads it back, deletes it and logs its size.
 ``TraceView`` holds the device operations (kernels, copies, sets) and the
 host events of the harness's thread inside the ``bench.window`` span, all
-in microseconds of one clock.
+in microseconds of one clock.  Each device operation keeps its
+``correlation`` id, and each runtime call of the harness's thread that
+launched one its time, so that a reader can sum the device time launched
+while a span of that thread was open (:meth:`TraceView.launched_seconds`).
 """
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import sys
@@ -19,6 +23,7 @@ from dataclasses import dataclass, field
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 WINDOW_SPAN = "bench.window"
 #: entries of each breakdown list
 TOP = 10
@@ -42,6 +47,12 @@ class TraceView:
     t1: float
     device_ops: list = field(default_factory=list)   # (name, start, end)
     host: list = field(default_factory=list)         # (name, cat, start, end)
+    #: each device operation's correlation id (None: not known), parallel
+    #: to ``device_ops``
+    device_corr: list = field(default_factory=list)
+    #: correlation id -> start of the harness thread's runtime call that
+    #: launched it
+    launches: dict = field(default_factory=dict)
 
     @property
     def window_s(self) -> float:
@@ -56,6 +67,29 @@ class TraceView:
     def device_seconds(self, match) -> float:
         """Summed time of the device operations whose name ``match``es."""
         return sum(e - s for n, s, e in self.device_ops if match(n)) * 1e-6
+
+    def _opened(self, span: str) -> tuple:
+        """The host spans named ``span``: (their starts, (start, end)s)."""
+        iv = sorted((s, e) for n, c, s, e in self.host
+                    if c == "user_annotation" and n == span)
+        return [s for s, _ in iv], iv
+
+    def _launches(self):
+        """(name, start, end, launch time) of each device operation whose
+        launch is known."""
+        for (n, s, e), corr in zip(self.device_ops, self.device_corr):
+            ts = self.launches.get(corr)
+            if ts is not None:
+                yield n, s, e, ts
+
+    def launched_seconds(self, *spans: str, match=None) -> float:
+        """Summed time of the device operations (whose name ``match``es,
+        if given) launched while a span of each name in ``spans`` was open
+        on the harness's thread."""
+        opened = [self._opened(name) for name in spans]
+        return sum(e - s for n, s, e, ts in self._launches()
+                   if (match is None or match(n))
+                   and all(_within(ts, *o) >= 0 for o in opened)) * 1e-6
 
     def spans(self, name: str) -> list:
         """Durations (s) of the host spans called ``name``."""
@@ -103,6 +137,17 @@ class TraceView:
                 for s, e in longest]
 
 
+def _within(ts: float, starts: list, intervals: list) -> int:
+    """The index of the interval (sorted, not overlapping) holding ``ts``,
+    or -1."""
+    j = bisect.bisect_right(starts, ts) - 1
+    return j if j >= 0 and ts < intervals[j][1] else -1
+
+
+def _correlation(event: dict):
+    return event.get("args", {}).get("correlation")
+
+
 def parse(events: list) -> TraceView:
     """A ``TraceView`` of a Chrome trace's ``traceEvents``."""
     win = [e for e in events if e.get("ph") == "X"
@@ -125,8 +170,11 @@ def parse(events: list) -> TraceView:
         cat = e.get("cat", "")
         if cat in DEVICE_CATS:
             view.device_ops.append((e.get("name", "?"), s, end))
+            view.device_corr.append(_correlation(e))
         elif cat in HOST_CATS and e.get("tid") == tid:
             view.host.append((e.get("name", "?"), cat, s, end))
+            if cat in LAUNCH_CATS and _correlation(e) is not None:
+                view.launches[_correlation(e)] = float(e["ts"])
     return view
 
 
